@@ -50,10 +50,12 @@ from repro_torch.core.cfa import (
     PortedPlan,
     BandwidthReport,
     overlap_speedup,
-    # facet storage metadata
+    # facet storage disciplines (compile(storage=...), Ferry 2024)
     STORAGE_MODES,
     StorageMap,
     build_storage_map,
+    dedup_facets,
+    rehydrate_facets,
     BlockCodec,
     CODECS,
     get_codec,
@@ -90,6 +92,7 @@ __all__ = [
     "TransferPlan", "BurstModel", "PortedPlan", "BandwidthReport",
     "overlap_speedup",
     "STORAGE_MODES", "StorageMap", "build_storage_map",
+    "dedup_facets", "rehydrate_facets",
     "BlockCodec", "CODECS", "get_codec",
     "CFAPipeline",
     "TraceRecorder", "Span", "Counters", "RuntimeReport", "runtime_report",

@@ -4,8 +4,8 @@ Module for module the reference package's layout, so a reader finds each
 counterpart by name.  The numpy-only modules are copies (``spaces``,
 ``facets``, ``plans``, ``bandwidth`` without the TPU preset, ``multiport``,
 ``autotune``, ``passes``, ``obs``), or the parts of one that the main path
-needs (``compress``, ``irredundant``, ``analysis``); ``programs``,
-``transform``, ``executors`` and ``api`` work on tensors.  The stencil tile
+needs (``analysis``); ``programs``, ``transform``, ``compress``,
+``irredundant``, ``allocation``, ``executors`` and ``api`` work on tensors.  The stencil tile
 executor is a hand-written CUDA kernel (``repro_torch.kernels.stencil``).
 
 Public API (the subset of the reference's that this slice of the port
@@ -15,6 +15,13 @@ runs; ``repro_torch.cfa`` is the curated front door):
   spaces, dependences, tilings (§IV-A..F).
 * ``FacetSpec`` / ``build_facet_specs`` / ``extension_dir`` /
   ``CONTIGUITY_LEVELS`` — the facet layout (§IV-F..I).
+* ``pack_facet`` / ``pack_all`` / ``unpack_into`` — canonical volume <->
+  facet arrays (dedup-aware with a storage map).
+* ``STORAGE_MODES`` / ``StorageMap`` / ``build_storage_map`` /
+  ``owner_of`` / ``dedup_facets`` / ``rehydrate_facets`` /
+  ``IrredundantPipeline`` / ``CompressedPipeline`` / ``BlockCodec`` /
+  ``CODECS`` / ``get_codec`` — irredundant and compressed facet storage
+  (Ferry 2024).
 * ``TransferPlan`` / ``cfa_plan`` / ``interior_tile`` / the baseline
   plans — exact per-tile burst statistics (§V-C).
 * ``BurstModel`` / ``PortedPlan`` / ``BandwidthReport`` / ``AXI_ZC706`` /
@@ -48,8 +55,18 @@ from .facets import (
     extension_dir,
     CONTIGUITY_LEVELS,
 )
+from .allocation import pack_facet, pack_all, unpack_into
 from .compress import BlockCodec, CODECS, get_codec
-from .irredundant import STORAGE_MODES, StorageMap, build_storage_map, owner_of
+from .irredundant import (
+    STORAGE_MODES,
+    StorageMap,
+    build_storage_map,
+    owner_of,
+    dedup_facets,
+    rehydrate_facets,
+    IrredundantPipeline,
+    CompressedPipeline,
+)
 from .plans import (
     TransferPlan,
     count_runs,
@@ -131,7 +148,10 @@ __all__ = [
     "IterSpace", "Deps", "Tiling", "facet_widths",
     "flow_in_points", "flow_out_points", "facet_points", "neighbor_offsets",
     "FacetSpec", "build_facet_specs", "extension_dir", "CONTIGUITY_LEVELS",
+    "pack_facet", "pack_all", "unpack_into",
     "STORAGE_MODES", "StorageMap", "build_storage_map", "owner_of",
+    "dedup_facets", "rehydrate_facets",
+    "IrredundantPipeline", "CompressedPipeline",
     "BlockCodec", "CODECS", "get_codec",
     "TransferPlan", "count_runs", "cfa_plan", "cfa_piece_census", "original_layout_plan",
     "bounding_box_plan", "data_tiling_plan", "interior_tile",

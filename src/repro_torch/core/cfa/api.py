@@ -23,9 +23,11 @@ the CPU; ``device="cpu"`` is asked for explicitly, and there the kernel's
 wrapper runs its plain PyTorch version.
 
 The :class:`Target` registry holds the paper's ZC706 AXI port model, the
-default.  Multi-port execution, the overlapped ``dataflow`` backend,
-irredundant/compressed storage, halo quantization and the static verifier
-arrive with later slices of the port; ``compile`` rejects them loudly.
+default.  The three facet storage disciplines (``storage="redundant"``,
+``"irredundant"``, ``"compressed"`` with a ``codec``) all run.  Multi-port
+execution, the overlapped ``dataflow`` backend, halo quantization and the
+static verifier arrive with later slices of the port; ``compile`` rejects
+them loudly.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch
 from .autotune import LayoutCandidate, LayoutDecision
 from .bandwidth import AXI_ZC706, BandwidthReport, BurstModel
 from .compress import BlockCodec
+from .irredundant import rehydrate_facets
 from .multiport import best_repartition
 from .plans import TransferPlan
 from .programs import StencilProgram
@@ -304,17 +307,24 @@ class CompiledStencil:
         return self.pipeline.reference_volume(torch.as_tensor(inputs))
 
     def rehydrate(self, facets: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
-        """The redundant layout's payload of ``facets`` — the identity, as
-        the port stores the redundant layout only."""
-        return facets
+        """Refill non-owned facet slots from their owners, turning an
+        irredundant/compressed payload into the redundant layout's payload
+        (identity under ``storage="redundant"``) — the bit-exactness bridge
+        the tests compare across disciplines."""
+        if self.storage == "redundant":
+            return facets
+        return rehydrate_facets(facets, self.pipeline.storage_map)
 
     def describe(self) -> str:
         """One-paragraph human summary (layout, storage, backend, bw)."""
         r = self.report()
         ports = f" x{self.n_ports} ports" if self.n_ports > 1 else ""
+        store = "" if self.storage == "redundant" else (
+            f", {self.storage} storage (footprint {r.footprint})"
+        )
         return (
             f"{self.program.name} @ {self.space.sizes} -> "
-            f"layout {self.layout.key}, backend {self.backend} on "
+            f"layout {self.layout.key}{store}, backend {self.backend} on "
             f"{self.device}, target {self.target.name}{ports}: "
             f"{r.n_bursts} bursts/tile, redundancy {r.redundancy:.1%}, "
             f"effective bw {r.peak_fraction_effective:.1%} of one port's peak"
@@ -326,11 +336,10 @@ class CompiledStencil:
 # --------------------------------------------------------------------------
 
 
-def _reject_unported(n_ports, storage, overlap, halo_quantize, verify) -> None:
+def _reject_unported(n_ports, overlap, halo_quantize, verify) -> None:
     """Fail before the layout search for what no backend of the port runs."""
     later = {
         "n_ports > 1": (n_ports != 1, "the multi-port (sharded) slice"),
-        f"storage={storage!r}": (storage != "redundant", "the storage slice"),
         "overlap=True": (bool(overlap), "the dataflow slice"),
         "halo_quantize=True": (bool(halo_quantize), "the multi-port slice"),
         "verify=True": (bool(verify), "the analysis slice"),
@@ -375,7 +384,16 @@ def compile(
       that tile).
     * ``backend`` — a registered executor name, or ``"auto"``
       (:func:`repro_torch.core.cfa.executors.select_backend`: ``cuda`` on
-      3-D spaces, ``wavefront`` otherwise).
+      3-D spaces when it implements the storage, ``wavefront`` otherwise).
+    * ``storage`` — the facet storage discipline (Ferry 2024):
+      ``"redundant"`` (the paper's duplicated layout, default),
+      ``"irredundant"`` (each value stored exactly once; halo reads take
+      the owner-facet indirection), or ``"compressed"`` (irredundant +
+      fixed-ratio block ``codec``); validated against the backend's
+      declared ``ExecutorCaps.storages``.
+    * ``codec`` — :class:`BlockCodec` or registered name for
+      ``storage="compressed"`` (default ``deltapack16``); rejected loudly
+      with any other storage.
     * ``autotune_kwargs`` — passed through to :func:`autotune` when
       ``layout="autotune"`` (``seed``, ``budget``, ``cache_dir``, ...).
     * ``passes`` — a custom :class:`~repro_torch.core.cfa.passes.PassPipeline`
@@ -387,11 +405,11 @@ def compile(
     plus ``device``: the torch device facets live and tiles run on
     (``"cuda"`` by default; a missing card raises :class:`RuntimeError`).
 
-    ``n_ports > 1``, ``storage`` other than ``"redundant"``, ``codec``,
-    ``overlap=True``, ``halo_quantize=True`` and ``verify=True`` belong to
-    later slices of the port and raise :class:`NotImplementedError`.
+    ``n_ports > 1``, ``overlap=True``, ``halo_quantize=True`` and
+    ``verify=True`` belong to later slices of the port and raise
+    :class:`NotImplementedError`.
     """
-    _reject_unported(n_ports, storage, overlap, halo_quantize, verify)
+    _reject_unported(n_ports, overlap, halo_quantize, verify)
     state = CompileState(
         program=program, space=space, target=target, n_ports=n_ports,
         layout=layout, backend=backend, storage=storage, codec=codec,

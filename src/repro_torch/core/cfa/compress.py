@@ -1,31 +1,40 @@
-"""Fixed-ratio per-block compression codecs for facet storage — metadata.
+"""Fixed-ratio per-block compression codecs for facet storage (PyTorch).
 
 The irredundant-layout follow-up to the source paper (Ferry et al., 2024,
 *An Irredundant and Compressed Data Layout to Optimize Bandwidth Utilization
 of FPGA Accelerators*) pairs deduplicated facet storage with a *fixed-ratio*
 block compression: every facet block is stored in a statically known number
 of bits, so burst lengths — and the DMA descriptors that move them — stay
-compile-time constants while each burst carries fewer bytes.
+compile-time constants while each burst carries fewer bytes.  This module is
+that codec:
 
-This module holds the codec's size model: :func:`stored_bits`, the
-:class:`BlockCodec` registry and its ratio/width accounting, which the burst
-plans and ``BurstModel`` price transfers with.  The tensor-side
-``encode``/``decode``/``roundtrip``/``exact`` arrive with the port's storage
-slice (irredundant and compressed facet storage); until then they raise
-:class:`NotImplementedError`.
+* **XOR-delta + bit-pack** (:class:`BlockCodec` with ``bits`` in {8,16,32}):
+  a block is flattened, consecutive raw words are XOR'd, each residual keeps
+  its ``bits`` high-order bits, and residuals are packed densely into words.
+  The first element of each block is stored raw (the per-block header), so
+  the stored size is exactly ``elem_bits + (n-1) * bits`` — fixed ratio.
+* **lossless iff the dropped low-order residual bits are zero**;
+  :meth:`BlockCodec.exact` reports whether a block round-trips
+  bit-identically, and :meth:`BlockCodec.roundtrip` is what the compressed
+  execution pipeline stores.
+
+The words are bit-identical to the reference package's codec.  PyTorch has
+no shifts for unsigned 32/64-bit integers, so the words live in *signed*
+integer tensors of the element's width (``header``/``packed`` are
+``int32`` for float32 blocks, ``int64`` for float64): the same bit patterns
+as the reference's ``uint32``/``uint64`` words.  Right shifts sign-extend,
+so every one is masked; left shifts wrap, as unsigned shifts do.  The
+reference's ``associative_scan`` over XOR becomes a log-step doubling
+prefix-XOR (XOR is associative and exact, so the words agree).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 __all__ = ["BlockCodec", "CODECS", "DEFAULT_CODEC", "get_codec", "stored_bits"]
-
-_STORAGE_SLICE = (
-    "BlockCodec.{} runs on facet blocks; it arrives with the storage slice "
-    "of the PyTorch port (irredundant/compressed facet storage)"
-)
 
 
 def stored_bits(n_elems: int, elem_bits: int, bits: int | None) -> int:
@@ -39,6 +48,28 @@ def stored_bits(n_elems: int, elem_bits: int, bits: int | None) -> int:
     if not bits:
         return n_elems * elem_bits
     return elem_bits + (n_elems - 1) * min(bits, elem_bits)
+
+
+def _word_dtype(itemsize: int) -> torch.dtype:
+    """The signed integer dtype whose words carry an element's bits."""
+    try:
+        return {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[itemsize]
+    except KeyError:
+        raise ValueError(f"unsupported element width: {itemsize} bytes") from None
+
+
+def _low_mask(b: int, elem_bits: int) -> int:
+    """``(1 << b) - 1`` as a signed ``elem_bits``-wide value (-1 = all ones)."""
+    return -1 if b >= elem_bits else (1 << b) - 1
+
+
+def _prefix_xor(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix-XOR of a 1-D tensor (Hillis-Steele doubling)."""
+    n, s = v.numel(), 1
+    while s < n:
+        v = torch.cat([v[:s], v[s:] ^ v[:-s]])
+        s *= 2
+    return v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,9 +107,9 @@ class BlockCodec:
             return 1.0
         return self.stored_bits(n_elems, elem_bits) / (n_elems * elem_bits)
 
-    def _widths(self, dtype) -> tuple[int, int]:
+    def _widths(self, dtype: torch.dtype) -> tuple[int, int]:
         """(element bits, residual bits) for words of ``dtype``."""
-        elem_bits = 8 * np.dtype(dtype).itemsize
+        elem_bits = 8 * dtype.itemsize
         b = min(self.bits, elem_bits) if self.bits else elem_bits
         if elem_bits % b:
             raise ValueError(
@@ -87,19 +118,58 @@ class BlockCodec:
             )
         return elem_bits, b
 
-    # -- the tensor side: the storage slice ---------------------------------
+    # -- encode / decode on tensors ------------------------------------------
 
-    def encode(self, block):
-        raise NotImplementedError(_STORAGE_SLICE.format("encode"))
+    def encode(self, block: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (header, packed): the raw first word and the densely packed
+        high-``bits`` XOR residuals of the flattened block, as signed words
+        of the element's width on the block's device."""
+        x = block.contiguous().view(_word_dtype(block.element_size())).reshape(-1)
+        elem_bits, b = self._widths(block.dtype)
+        header = x[:1]
+        if not self.bits or x.numel() <= 1:
+            return header, x[1:]
+        shift = elem_bits - b
+        resid = ((x[1:] ^ x[:-1]) >> shift) & _low_mask(b, elem_bits)  # high bits
+        per = elem_bits // b  # residuals per packed word
+        pad = (-resid.numel()) % per
+        if pad:
+            resid = torch.cat([resid, resid.new_zeros(pad)])
+        resid = resid.reshape(-1, per)
+        packed = torch.zeros_like(resid[:, 0])
+        for i in range(per):
+            packed = packed | (resid[:, i] << i * b)  # wraps like uint shifts
+        return header, packed
 
-    def decode(self, header, packed, shape, dtype):
-        raise NotImplementedError(_STORAGE_SLICE.format("decode"))
+    def decode(self, header: torch.Tensor, packed: torch.Tensor,
+               shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        """Inverse of :meth:`encode` (up to the dropped low-order bits)."""
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        elem_bits, b = self._widths(dtype)
+        if not self.bits or n <= 1:
+            words = torch.cat([header, packed])[:n]
+            return words.view(dtype).reshape(shape)
+        per = elem_bits // b
+        mask = _low_mask(b, elem_bits)
+        resid = torch.stack(
+            [(packed >> i * b) & mask for i in range(per)], dim=1,
+        ).reshape(-1)[: n - 1]
+        deltas = resid << (elem_bits - b)  # low-order bits are lost
+        words = _prefix_xor(torch.cat([header, deltas]))
+        return words.view(dtype).reshape(shape)
 
-    def roundtrip(self, block):
-        raise NotImplementedError(_STORAGE_SLICE.format("roundtrip"))
+    def roundtrip(self, block: torch.Tensor) -> torch.Tensor:
+        """What storage retains: ``decode(encode(block))`` — bit-identical
+        when the data's XOR-deltas fit the ratio, truncated otherwise."""
+        if not self.bits:
+            return block
+        header, packed = self.encode(block)
+        return self.decode(header, packed, tuple(block.shape), block.dtype)
 
-    def exact(self, block) -> bool:
-        raise NotImplementedError(_STORAGE_SLICE.format("exact"))
+    def exact(self, block: torch.Tensor) -> bool:
+        """True iff the block survives the fixed ratio bit-identically."""
+        a = torch.as_tensor(block)
+        return bool((self.roundtrip(a) == a).all())
 
 
 #: Registered codecs: ``raw`` is the identity (ratio 1.0, always exact);

@@ -18,10 +18,12 @@ bit-exact across backends):
   the paper's kernel configuration.  On a CPU pipeline the kernel's
   wrapper runs its plain PyTorch version.
 
-Every backend of this slice implements the paper's redundant facet storage
-on one port; the irredundant/compressed disciplines, the multi-port
-``sharded`` and the overlapped ``dataflow`` backends arrive with later
-slices of the port.
+Every backend runs one port.  ``reference``, ``sweep`` and ``wavefront``
+implement all three facet storage disciplines (redundant, irredundant,
+compressed); ``cuda`` declares redundant and irredundant only — its kernels
+have no decode stage — so ``select_backend`` sends compressed storage to
+``wavefront``.  The multi-port ``sharded`` and the overlapped ``dataflow``
+backends arrive with later slices of the port.
 
 Custom backends register through :func:`register_executor`; the autotuner's
 cache key folds :func:`capability_fingerprint` in, so decisions re-search
@@ -69,7 +71,9 @@ class ExecutorCaps:
     repartition (anything else requires ``n_ports == 1``).
     ``kernels`` — whether the backend drives the hand-written kernels.
     ``storages`` — the facet storage disciplines the backend implements
-    (``repro_torch.core.cfa.irredundant.STORAGE_MODES``).
+    (``repro_torch.core.cfa.irredundant.STORAGE_MODES``); a kernel backend
+    with no decompression stage must not silently accept
+    ``storage="compressed"``.
     ``overlap`` — whether the backend overlaps fetch/compute/commit
     (Fig. 13 DATAFLOW); sequential backends should be modeled with
     ``BurstModel.time(..., overlap=False)``.
@@ -78,7 +82,7 @@ class ExecutorCaps:
     ndims: tuple[int, ...] | None = None
     multiport: bool = False
     kernels: bool = False
-    storages: tuple[str, ...] = ("redundant",)
+    storages: tuple[str, ...] = ("redundant", "irredundant", "compressed")
     overlap: bool = False
     description: str = ""
 
@@ -210,6 +214,10 @@ register_executor(_FnExecutor(
 register_executor(_FnExecutor(
     "cuda",
     ExecutorCaps(ndims=(3,), kernels=True,
+                 # the tile kernel reads halos that copy_in resolved through
+                 # the owner indirection; there is no decode stage, so the
+                 # compressed discipline is declared unsupported
+                 storages=("redundant", "irredundant"),
                  description="wavefront sweep through the hand-written CUDA "
                              "tile executor (one launch per wave, 3-D only)"),
     _cuda,
@@ -302,7 +310,7 @@ def select_backend(
       them yet (the ``sharded`` and ``dataflow`` slices): raises
       :class:`BackendError`;
     * 3-D spaces → ``cuda`` (the paper's kernel configuration), when it
-      implements the storage discipline;
+      implements the storage discipline (not ``compressed``);
     * anything else → ``wavefront`` (dimension-generic, batched).
     """
     if n_ports > 1:

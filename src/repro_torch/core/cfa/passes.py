@@ -38,8 +38,8 @@ executor registry and its PyTorch ``CFAPipeline``, built on the state's
 ``device``.  The ``distribute`` pass still computes its split, but no
 backend of the port runs ``n_ports > 1`` yet (the sharded slice), so an
 over-budget space is rejected by the backend gate; ``lower_backend``
-rejects non-redundant storage and ``halo_quantize=True`` until their
-slices land.
+builds the redundant, irredundant or compressed pipeline and rejects
+``halo_quantize=True`` until the multi-port slice lands.
 """
 from __future__ import annotations
 
@@ -596,35 +596,39 @@ def select_backend(state: CompileState) -> CompileState:
                requires=("program", "target", "layout", "backend"),
                provides=("compiled",))
 def lower_backend(state: CompileState) -> CompileState:
-    """Instantiate the CFAPipeline on the requested device and wrap it with
-    the bound executor into the final ``CompiledStencil``.
+    """Instantiate the CFAPipeline for the storage discipline on the
+    requested device and wrap it with the bound executor into the final
+    ``CompiledStencil``.
 
-    The port's pipelines realise the paper's redundant storage without
-    halo quantization; the other disciplines and the int8 halo hook arrive
-    with later slices and are rejected here, loudly."""
+    The int8 halo hook belongs to the multi-port slice and is rejected
+    here, loudly."""
     from .api import CompiledStencil
+    from .irredundant import CompressedPipeline, IrredundantPipeline
     from .transform import CFAPipeline
 
-    if state.storage != "redundant":
-        raise NotImplementedError(
-            f"storage={state.storage!r}: the PyTorch port lowers only the "
-            f"redundant facet layout yet (irredundant/compressed storage is "
-            f"the storage slice)"
-        )
     if state.halo_quantize:
         raise NotImplementedError(
             "halo_quantize=True: the PyTorch port has no int8 halo hook yet "
             "(it arrives with the multi-port slice)"
         )
     cand = state.candidate
-    pipeline = CFAPipeline(
-        state.program, state.space, Tiling(cand.tile),
+    pipe_kwargs = dict(
         ext_dirs=cand.ext_dirs,
         contiguity=cand.contiguity or "intra-tile",
         decision=state.decision,
         port_assignment=state.port_assignment,
         device=state.device,
     )
+    if state.storage == "redundant":
+        pipeline = CFAPipeline(state.program, state.space,
+                               Tiling(cand.tile), **pipe_kwargs)
+    elif state.storage == "irredundant":
+        pipeline = IrredundantPipeline(state.program, state.space,
+                                       Tiling(cand.tile), **pipe_kwargs)
+    else:
+        pipeline = CompressedPipeline(state.program, state.space,
+                                      Tiling(cand.tile), codec=state.codec,
+                                      **pipe_kwargs)
     compiled = CompiledStencil(
         program=state.program, space=state.space, target=state.target,
         n_ports=state.n_ports, executor=state.executor, pipeline=pipeline,

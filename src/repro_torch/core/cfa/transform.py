@@ -53,8 +53,8 @@ __all__ = ["CFAPipeline"]
 
 @dataclasses.dataclass
 class CFAPipeline:
-    #: facet storage discipline this pipeline realises (the irredundant /
-    #: compressed variants arrive with the port's storage slice)
+    #: facet storage discipline this pipeline realises; the irredundant /
+    #: compressed variants live in ``repro_torch.core.cfa.irredundant``
     storage: typing.ClassVar[str] = "redundant"
 
     program: StencilProgram
@@ -161,7 +161,9 @@ class CFAPipeline:
 
     def _commit_block(self, arr, idx, block, spec: FacetSpec):
         """Write one laid-out facet block at its outer index, in place (the
-        reference's ``arr.at[idx].set(block)``)."""
+        reference's ``arr.at[idx].set(block)``).  The storage disciplines
+        override only this commit step (owner-masked under irredundant
+        storage, codec round-trip under compressed)."""
         arr[idx] = block
         return arr
 
@@ -203,7 +205,8 @@ class CFAPipeline:
         """Assign each non-virtual halo point to the facet it is read from:
         under redundant storage, the first facet crossed along its own axis
         whose domain contains the point (any copy is valid — they are all
-        written).  ``taken`` is updated in place."""
+        written).  ``taken`` is updated in place.  The irredundant pipeline
+        overrides this with the owner-facet indirection."""
         maps = {}
         for k, spec in self.specs.items():
             mask = ~taken & (pts[:, k] < lo[k]) & (pts[:, k] >= 0) & spec.domain_mask(pts)

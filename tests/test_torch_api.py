@@ -169,9 +169,8 @@ def test_default_device_is_cuda_and_needs_a_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(n_ports=2), dict(storage="irredundant"), dict(storage="compressed"),
-    dict(overlap=True), dict(halo_quantize=True), dict(verify=True),
-], ids=["n_ports", "irredundant", "compressed", "overlap", "halo_quantize", "verify"])
+    dict(n_ports=2), dict(overlap=True), dict(halo_quantize=True), dict(verify=True),
+], ids=["n_ports", "overlap", "halo_quantize", "verify"])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="PyTorch port"):
         _port("jacobi2d5p", **kw)
@@ -192,8 +191,8 @@ def test_unported_backends_and_methods_raise():
         compiled.runtime_report()
     with pytest.raises(NotImplementedError, match="calibration"):
         cfa.autotune("jacobi2d5p", (8, 8, 8), score="measured", cache=False)
-    with pytest.raises(NotImplementedError, match="storage slice"):
-        cfa.get_codec("deltapack16").roundtrip(torch.zeros(4))
+    # the storage disciplines run: the codec is no longer a stub
+    assert torch.equal(cfa.get_codec("deltapack16").roundtrip(torch.zeros(4)), torch.zeros(4))
     assert "tpu-v5e-hbm" not in cfa.TARGETS and list(cfa.TARGETS) == ["axi-zc706"]
     assert sorted(cfa.EXECUTORS) == ["cuda", "reference", "sweep", "wavefront"]
 
