@@ -52,15 +52,52 @@ result line unless every phase passed):
                (median of 5 windows after warm-up launches), beside its plain
                version, its bound and, for the fetch, one ``torch.take``
                over a precomputed index as a bandwidth yardstick;
-11. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+11. attn-kernel — ``decode_attention`` against its plain version on
+               ``tests/test_kernels.py``'s shapes, the partial final block
+               and qwen3-0.6b's decode shape (B 8, Hq 16, Hkv 8, D 128,
+               bs 256, nb 8; lengths 1, 256, 257, 2048, ...), for (q, K/V)
+               in float32/float32, bfloat16/bfloat16 and float32/bfloat16
+               (the model's float32-compute pairing); within 2e-5 + 2e-5 |want|
+               for a float32 query and 1e-4 + 2^-7 |want| (one bfloat16
+               rounding) for bfloat16, a limit that a control computed in
+               bfloat16 throughout must exceed;
+12. ssd-kernel — ``ssd_scan`` against its plain version on the test shapes,
+               mamba2-370m's prefill shape (B 1 and 4, T 1024, H 32, P 64,
+               N 128, chunk 128) and the serve stream's prompts shorter than
+               a chunk (chunk = T), float32 and bfloat16; y within 1e-4 +
+               1e-4 |want| and 1e-3 + 2^-7 |want| (the bfloat16 control
+               must exceed it), the final state within 1e-4 + 1e-4 |want|;
+13. serve    — slice 3's path: for qwen3-0.6b and mamba2-370m at ``tp=1``
+               (the published widths and depth, random weights from
+               ``torch.Generator("cuda").manual_seed(0)``) a
+               ``ContinuousBatcher`` with 8 lanes and ``max_seq`` 2048
+               answers 16 requests (prompt lengths seeded uniform in
+               64..1024, 64 new tokens each).  Every request must finish with
+               64 tokens, every logit must be finite, ``decode_attention``
+               must launch 28 times per decode tick and ``ssd_scan`` 48
+               times per admitted prefill; then one request (prompt 128, 4
+               decode steps) on the card against the same port on the CPU
+               with the weights copied over: relative max logit error below
+               1e-3 with float32 compute and caches at full depth, and below
+               0.06 in the served bfloat16 at full depth (qwen3) or cut to 4
+               layers (mamba2, whose 48 random layers amplify bf16 rounding;
+               the errors at 1-16 layers and full depth are printed);
+               tokens/s, ``stats()``, peak memory and a profiler window over
+               decode ticks (kernel time only) are printed;
+14. serve timing — both new kernels timed at their path shapes, beside
+               their plain versions, their bounds and, for
+               ``decode_attention``, ``scaled_dot_product_attention`` over
+               the deblockified cache with the same mask as a yardstick;
+15. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
-``--steps`` cuts the time axis of the full-width paths (7-9); by default
-each runs at its full size.  Imports nothing of the JAX package; the port
-is imported from ``src/`` beside this file.
+``--steps`` cuts the time axis of the full-width stencil paths (7-9); by
+default each runs at its full size.  Imports nothing of the JAX package;
+the port is imported from ``src/`` beside this file.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -97,6 +134,34 @@ FETCH_CASES = [  # tests/test_kernels.py's facet-fetch cases
     ("jacobi2d9p", (12, 8, 8), (4, 4, 4)),
     ("gaussian", (4, 16, 16), (2, 8, 8)),
 ]
+ATTN_CASES = [  # B, Hq, Hkv, D, S, bs, lengths (None: seeded in 1..S)
+    (2, 8, 2, 64, 256, 64, None),  # tests/test_kernels.py's cases
+    (1, 4, 4, 32, 128, 32, None),
+    (3, 16, 1, 64, 192, 64, None),
+    (2, 4, 2, 32, 128, 32, [1, 33]),  # the partial final block
+    (8, 16, 8, 128, 2048, 256, [1, 256, 257, 2048, 64, 777, 1024, 1500]),  # qwen3-0.6b
+]
+SSD_CASES = [  # B, T, H, P, N, chunk; phase 12 adds the serve stream's short prompts
+    (2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32), (2, 96, 8, 8, 4, 32),  # the tests'
+    (1, 1024, 32, 64, 128, 128), (4, 1024, 32, 64, 128, 128),  # mamba2-370m
+]
+#: kernel-vs-plain limits, (rtol, atol): |got - want| <= atol + rtol |want|.  A
+#: bfloat16 output may round the other way from the plain version's, one unit
+#: in the last place, which is at most 2^-7 |want|; the atol covers values near 0
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-3)}
+STATE_TOL = (1e-4, 1e-4)
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m")
+SERVE_LANES, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_MAX_NEW = 8, 2048, 16, 64
+SERVE_PROMPTS = (64, 1024)  # prompt lengths, seeded uniform, inclusive
+CPU_CHECK_PROMPT, CPU_CHECK_STEPS = 128, 4
+#: depths at which the served bfloat16 card run is held to the CPU (the full
+#: depth is added); the check is made at BF16_WITNESS_DEPTH, the others printed
+CPU_CHECK_DEPTHS = (1, 2, 4, 8, 16)
+#: mamba2-370m's 48 random layers amplify bfloat16 rounding (its CPU logits move
+#: 0.14-0.27 between bf16 and f32 compute), so its bf16 witness is a depth cut
+BF16_WITNESS_DEPTH = {"qwen3-0.6b": 28, "mamba2-370m": 4}
+BF16_LOGIT_TOL = 0.06  # tests/test_archs.py's relative max error
 KERNEL_CASES = [  # (program, tile, batch) for the kernel-vs-plain phase
     ("jacobi2d5p", (4, 8, 8), 3), ("jacobi2d5p", (8, 16, 16), 2),
     ("jacobi2d9p", (4, 8, 8), 3), ("jacobi2d9p-gol", (4, 8, 8), 3),
@@ -636,6 +701,451 @@ def phase_fetch_timing(run: dict) -> dict:
             "bound_by": "bytes"}
 
 
+# -- slice 3: LM serving ------------------------------------------------------
+
+
+def _excess(got: torch.Tensor, want: torch.Tensor, tol: tuple[float, float]) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 within ``tol``
+    = (rtol, atol); inf if ``got`` is not finite."""
+    g, w = got.double(), want.double()
+    if not bool(torch.isfinite(g).all()):
+        return math.inf
+    rtol, atol = tol
+    return float(((g - w).abs() / (atol + rtol * w.abs())).max()) if g.numel() else 0.0
+
+
+def _attn_lowp(q, k, v, lengths) -> torch.Tensor:
+    """The control: decode attention with every step in ``q.dtype``
+    (bfloat16 scores, softmax and products), over the canonical cache."""
+    B, S, Hkv, D = k.shape
+    Hq = q.shape[1]
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, Hkv, Hq // Hkv, D), k) / math.sqrt(D)
+    mask = torch.arange(S, device=q.device)[None, :] < lengths[:, None].long()
+    s = torch.where(mask[:, None, None, :], s, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    return torch.einsum("bhgs,bshd->bhgd", p, v).reshape(B, Hq, D)
+
+
+def _ssd_lowp(x, loga, Bm, C, chunk) -> torch.Tensor:
+    """The control: the chunked SSD (``ssd_chunked_ref``'s math) with every
+    step, the carried state included, in ``x.dtype``."""
+    dt = x.dtype
+    Bb, T, H, P = x.shape
+    N, L, nc = Bm.shape[-1], chunk, T // chunk
+    xc, lc = x.reshape(Bb, nc, L, H, P), loga.to(dt).reshape(Bb, nc, L, H)
+    Bc, Cc = Bm.reshape(Bb, nc, L, N), C.reshape(Bb, nc, L, N)
+    idx = torch.arange(L, device=x.device)
+    mask = (idx[:, None] >= idx[None, :])[None, :, :, None]
+    S = x.new_zeros((Bb, H, P, N))
+    ys = []
+    for c in range(nc):
+        xk, Bk, Ck = xc[:, c], Bc[:, c], Cc[:, c]
+        lcum = torch.cumsum(lc[:, c], 1)
+        ltot = lcum[:, -1]
+        y = torch.exp(lcum)[..., None] * torch.einsum("bln,bhpn->blhp", Ck, S)
+        W = torch.exp(lcum[:, :, None] - lcum[:, None]) * torch.einsum("bln,bsn->bls", Ck, Bk)[..., None]
+        y = y + torch.einsum("blsh,bshp->blhp", torch.where(mask, W, W.new_zeros(())), xk)
+        S = torch.exp(ltot)[..., None, None] * S + torch.einsum(
+            "blhp,bln->bhpn", xk * torch.exp(ltot[:, None] - lcum)[..., None], Bk)
+        ys.append(y)
+    return torch.stack(ys, 1).reshape(Bb, T, H, P)
+
+
+def _serve_prompt_lens(rng) -> np.ndarray:
+    """The serve stream's prompt lengths: ``rng``'s first draw."""
+    return rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, size=SERVE_REQUESTS)
+
+
+def phase_attn_kernel(device) -> float:
+    """``decode_attention`` against its plain version (``decode_attention_ref``
+    over ``deblockify``, as the wrapper runs it on the CPU); in bfloat16 also a
+    control computed in bfloat16 throughout, which the limit must reject."""
+    from repro_torch.kernels.block_attention import (blockify, deblockify, decode_attention,
+                                                     decode_attention_ref)
+
+    rng = np.random.default_rng(SEED)
+    worst, control = 0.0, 0.0
+    for B, Hq, Hkv, D, S, bs, lens in ATTN_CASES:
+        q = rng_tensor(rng, (B, Hq, D), torch.float32, device)
+        kc = rng_tensor(rng, (B, S, Hkv, D), torch.float32, device)
+        vc = rng_tensor(rng, (B, S, Hkv, D), torch.float32, device)
+        lens = rng.integers(1, S + 1, size=B) if lens is None else np.asarray(lens)
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=device)
+        for qdt, kvdt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                          (torch.float32, torch.bfloat16)):
+            tol = ATTN_TOL[qdt]
+            qq, kb, vb = q.to(qdt), blockify(kc.to(kvdt), bs), blockify(vc.to(kvdt), bs)
+            got = decode_attention(qq, kb, vb, lengths)
+            want = decode_attention_ref(qq, deblockify(kb), deblockify(vb), lengths)
+            torch.cuda.synchronize()
+            err, ex = max_abs(got, want), _excess(got, want, tol)
+            note = ""
+            if qdt == torch.bfloat16:
+                ctrl = _excess(_attn_lowp(qq, deblockify(kb), deblockify(vb), lengths), want, tol)
+                control = max(control, ctrl)
+                note = f"; bfloat16-throughout control {ctrl:.3f} x the limit"
+            log(f"[attn-kernel] decode_attention B={B} Hq={Hq} Hkv={Hkv} D={D} S={S} bs={bs} "
+                f"lengths={lens.tolist()} q {str(qdt)[6:]} K/V {str(kvdt)[6:]}: "
+                f"max|kernel-plain| = {err!r}, {ex:.3f} x the limit (rtol, atol) = {tol}{note}")
+            if got.dtype != qdt or not ex <= 1.0:
+                raise AssertionError(f"decode_attention differs from its plain version by {err!r}")
+            worst = max(worst, err)
+    if not control > 1.0:
+        raise AssertionError(f"the bfloat16 limit {ATTN_TOL[torch.bfloat16]} does not reject a "
+                             f"bfloat16-throughout control ({control:.3f} x the limit)")
+    return worst
+
+
+def phase_ssd_kernel(device) -> float:
+    """``ssd_scan`` against its plain version (``ssd_chunked_ref``), y and
+    the final state, on the test shapes, mamba2-370m's and the serve
+    stream's prompts shorter than a chunk (run with chunk = T); in bfloat16
+    also a control computed in bfloat16 throughout, which the limit must
+    reject."""
+    from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_scan
+
+    cfg = _serve_cfg("mamba2-370m")
+    short = sorted({int(n) for n in _serve_prompt_lens(np.random.default_rng(SEED))
+                    if n < cfg.ssm_chunk})
+    cases = SSD_CASES + [(1, n, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, n) for n in short]
+    rng = np.random.default_rng(SEED)
+    worst, control = 0.0, 0.0
+    for B, T, H, P, N, chunk in cases:
+        x = rng_tensor(rng, (B, T, H, P), torch.float32, device)
+        loga = -rng_tensor(rng, (B, T, H), torch.float32, device).abs() * 0.5
+        Bm = rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)
+        C = rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)
+        for dt in (torch.float32, torch.bfloat16):
+            tol = SSD_TOL[dt]
+            args = (x.to(dt), loga, Bm.to(dt), C.to(dt))
+            y, st = ssd_scan(*args, chunk=chunk)
+            wy, wst = ssd_chunked_ref(*args, chunk)
+            torch.cuda.synchronize()
+            err_y, err_s = max_abs(y, wy), max_abs(st, wst)
+            ex_y, ex_s = _excess(y, wy, tol), _excess(st, wst, STATE_TOL)
+            note = ""
+            if dt == torch.bfloat16:
+                ctrl = _excess(_ssd_lowp(*args, chunk), wy, tol)
+                control = max(control, ctrl)
+                note = f"; bfloat16-throughout control {ctrl:.3f} x the limit"
+            log(f"[ssd-kernel] ssd_scan B={B} T={T} H={H} P={P} N={N} chunk={chunk} "
+                f"{str(dt)[6:]}: max|kernel-plain| y = {err_y!r}, {ex_y:.3f} x the limit "
+                f"(rtol, atol) = {tol}; state = {err_s!r}, {ex_s:.3f} x {STATE_TOL}{note}")
+            if y.dtype != dt or not (ex_y <= 1.0 and ex_s <= 1.0):
+                raise AssertionError(f"ssd_scan differs from its plain version: y {err_y!r}, "
+                                     f"state {err_s!r}")
+            worst = max(worst, err_y, err_s)
+    if not control > 1.0:
+        raise AssertionError(f"the bfloat16 limit {SSD_TOL[torch.bfloat16]} does not reject a "
+                             f"bfloat16-throughout control ({control:.3f} x the limit)")
+    return worst
+
+
+def _serve_cfg(arch: str):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), tp=1)
+
+
+def _logits_along(model, prompt: torch.Tensor, toks=None) -> tuple[list, list]:
+    """Prefill ``prompt`` and decode ``CPU_CHECK_STEPS`` tokens (``toks``, or
+    the model's own greedy picks); every step's logits as float32 on the
+    host, and the tokens fed."""
+    from repro_torch.models.lm import lm_decode, lm_prefill
+
+    cfg = model.cfg
+    # float32 compute keeps its caches in float32 too: a bf16 cache would
+    # round card and CPU values that straddle a rounding midpoint apart
+    cache_dtype = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
+    logits, caches = lm_prefill(model, prompt.to(model.device), max_seq=cfg.kv_block,
+                                cache_dtype=cache_dtype)
+    out, fed = [logits.float().cpu()], []
+    for step in range(CPU_CHECK_STEPS):
+        tok = torch.argmax(out[-1][:, : cfg.vocab], -1) if toks is None else toks[step]
+        logits, caches = lm_decode(model, caches, tok, prompt.shape[1] + step)
+        out.append(logits.float().cpu())
+        fed.append(tok)
+    return out, fed
+
+
+def _rel_errs(got: list, want: list) -> list[float]:
+    """Per step: max |got - want| over max(|want|, 1) (tests/test_archs.py's measure)."""
+    errs = []
+    for a, b in zip(got, want):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("non-finite logits in the card/CPU check")
+        errs.append(float((a - b).abs().max()) / max(float(b.abs().max()), 1.0))
+    return errs
+
+
+def _copy(model, cfg, device, n_layers: int):
+    """``model``'s weights in a model of ``cfg`` on ``device``, cut to its
+    first ``n_layers`` layers."""
+    from repro_torch.models.lm import LM
+
+    m = LM(dataclasses.replace(cfg, n_layers=n_layers), device=device)
+    keep = m.state_dict()
+    m.load_state_dict({k: v for k, v in model.state_dict().items() if k in keep})
+    return m
+
+
+def _cpu_check(model, cfg, rng) -> dict:
+    """One request (prompt 128, 4 decode steps) on the card and through the
+    same port on the CPU with the weights copied over, all runs fed the
+    same tokens.
+
+    float32 compute and caches (bf16 values are exact in float32), full
+    depth: card against CPU within 1e-3 relative (only summation order
+    differs).  The served bfloat16: card against CPU within 0.06 at
+    ``BF16_WITNESS_DEPTH`` layers (the same weights, the model cut after
+    them); the errors at ``CPU_CHECK_DEPTHS`` and the full depth, and the
+    CPU's own bf16-against-float32 spread at each, are printed beside it."""
+    t0 = time.perf_counter()
+    full, witness = cfg.n_layers, BF16_WITNESS_DEPTH[cfg.name]
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, CPU_CHECK_PROMPT)))
+    card16, toks = _logits_along(model, prompt)
+    e16, spread = {}, {}
+    for d in sorted({d for d in CPU_CHECK_DEPTHS if d < full} | {witness, full}):
+        card = card16 if d == full else _logits_along(_copy(model, cfg, model.device, d),
+                                                      prompt, toks)[0]
+        cpu16 = _logits_along(_copy(model, cfg, "cpu", d), prompt, toks)[0]
+        cpu32 = _logits_along(_copy(model, cfg32, "cpu", d), prompt, toks)[0]
+        e16[d], spread[d] = max(_rel_errs(card, cpu16)), max(_rel_errs(cpu16, cpu32))
+    card32 = _logits_along(_copy(model, cfg32, model.device, full), prompt, toks)[0]
+    e32 = _rel_errs(card32, cpu32)  # cpu32: the last depth, the full one
+    log(f"[serve] {cfg.name}: card vs CPU (same port, weights copied), prompt "
+        f"{CPU_CHECK_PROMPT} + {CPU_CHECK_STEPS} decode steps, relative max logit error: "
+        f"float32 compute, {full} layers, per step {e32} (limit 1e-3); bfloat16 by depth "
+        f"(layers: max over steps) {e16} (limit {BF16_LOGIT_TOL} at {witness} layers); the "
+        f"CPU's own bfloat16 vs float32 spread by depth {spread}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not max(e32) < 1e-3:
+        raise AssertionError(f"{cfg.name}: float32 card and CPU logits differ by {max(e32)!r}")
+    if not e16[witness] < BF16_LOGIT_TOL:
+        raise AssertionError(f"{cfg.name}: bfloat16 card and CPU logits differ by "
+                             f"{e16[witness]!r} at {witness} layers")
+    return {"bf16": e16[witness], "bf16_depth": witness, "f32": max(e32)}
+
+
+def _profile_decode(model, caches, B: int, n_ticks: int = 4) -> None:
+    """Device time by kernel over a few decode ticks at full occupancy
+    (every lane at position ``SERVE_MAX_SEQ // 2``), from ``torch.profiler``.
+    Only the kernel rows are summed: an operator's row repeats the time of
+    the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.lm import lm_decode
+
+    tok = torch.zeros(B, dtype=torch.int64, device=model.device)
+    pos = np.full(B, SERVE_MAX_SEQ // 2)
+    lm_decode(model, caches, tok, pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            lm_decode(model, caches, tok, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    if not rows:
+        log(f"[serve] {model.cfg.name}: profiler saw no kernel time over {n_ticks} decode ticks "
+            f"({wall * 1e3:.3f} ms wall): device busy share not measured")
+        return
+    log(f"[serve] {model.cfg.name}: profiler over {n_ticks} decode ticks (B={B}, position "
+        f"{SERVE_MAX_SEQ // 2}): wall {wall * 1e3:.3f} ms, kernels {sum(r[2] for r in rows)} "
+        f"launches, device busy {busy_us / 1e3:.3f} ms ({busy_us / 1e6 / wall:.1%}; idle "
+        f"{1 - busy_us / 1e6 / wall:.1%}); top kernels by device time: "
+        + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms ({t / busy_us:.1%}) x{c}" for k, t, c in rows[:6]))
+
+
+def phase_serve(device, arch: str) -> dict:
+    """Slice 3's path for one model, once, through the ContinuousBatcher."""
+    from repro_torch.core.cfa.obs import TraceRecorder
+    from repro_torch.kernels.block_attention import decode_attention
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve import scheduler
+    from repro_torch.serve.scheduler import ContinuousBatcher, Request
+
+    cfg = _serve_cfg(arch)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, generator=torch.Generator(device).manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] {arch} (tp=1): {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab} (padded {cfg.padded_vocab}), {n_params} parameters, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    lens = _serve_prompt_lens(rng)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, size=int(n)), SERVE_MAX_NEW)
+            for i, n in enumerate(lens)]
+    rec = TraceRecorder(label=f"serve-{arch}")
+    cb = ContinuousBatcher(model, lanes=SERVE_LANES, max_seq=SERVE_MAX_SEQ, recorder=rec)
+    for r in reqs:
+        cb.submit(r)
+
+    finite, decode_positions = [], []
+
+    def watch(fn, positions=None):
+        def wrapped(*args, **kwargs):
+            logits, caches = fn(*args, **kwargs)
+            finite.append(torch.isfinite(logits).all())
+            if positions is not None:
+                positions.append(np.array(args[3]))
+            return logits, caches
+        return wrapped
+
+    prefill_fn, decode_fn = scheduler.lm_prefill, scheduler.lm_decode
+    scheduler.lm_prefill = watch(prefill_fn)
+    scheduler.lm_decode = watch(decode_fn, decode_positions)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' results, the weights, the lanes
+        decode_attention.launches = ssd_scan.launches = 0
+        t0 = time.perf_counter()
+        cb.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"decode_attention": decode_attention.launches,
+                    "ssd_scan": ssd_scan.launches}
+    finally:
+        scheduler.lm_prefill, scheduler.lm_decode = prefill_fn, decode_fn
+    peak = torch.cuda.max_memory_allocated()
+    n_decode = len(decode_positions)
+    n_attn = cfg.period.count("attn") * cfg.n_periods
+    n_mamba = cfg.period.count("mamba") * cfg.n_periods
+    prefill_s = sum(s.dur for s in rec.find("admit", cat="serve"))
+    decode_s = sum(s.dur for s in rec.find("step", cat="serve")) - prefill_s
+    st = cb.stats()
+    log(f"[serve] {arch}: {len(reqs)} requests (prompts {lens.tolist()}), {SERVE_LANES} lanes, "
+        f"max_seq {SERVE_MAX_SEQ}: {wall:.3f} s wall; prefill {int(lens.sum())} tokens in "
+        f"{prefill_s:.3f} s ({lens.sum() / prefill_s:.1f} tokens/s, admit spans); decode "
+        f"{cb.tokens} tokens in {n_decode} ticks, {decode_s:.3f} s ({cb.tokens / decode_s:.1f} "
+        f"tokens/s, step spans less admits); launches {launches}; max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB, of which {held / 2**30:.3f} GiB held before the run (weights, "
+        f"lane caches, earlier phases' results)")
+    log(f"[serve] {arch}: stats() {st}")
+    if not all(r.done and len(r.out) == SERVE_MAX_NEW for r in reqs):
+        raise AssertionError(f"{arch}: not every request finished with {SERVE_MAX_NEW} tokens")
+    if not all(bool(f) for f in finite):
+        raise AssertionError(f"{arch}: non-finite logits on the serve path")
+    if n_decode != cb.ticks or launches["decode_attention"] != n_attn * n_decode:
+        raise AssertionError(f"{arch}: {launches['decode_attention']} decode_attention launches "
+                             f"for {n_decode} decode ticks x {n_attn} attention layers")
+    if launches["ssd_scan"] != n_mamba * len(reqs):
+        raise AssertionError(f"{arch}: {launches['ssd_scan']} ssd_scan launches for "
+                             f"{len(reqs)} prefills x {n_mamba} mamba layers")
+    err = _cpu_check(model, cfg, rng)
+    _profile_decode(model, cb.caches, cb.lanes)
+    mid = decode_positions[n_decode // 2] + 1  # the valid prefix of a mid-run tick
+    return {"launches": launches, "decode_lengths": mid, "cpu_err": err,
+            "prompt_lens": lens}
+
+
+def _attn_bound(lengths: torch.Tensor, Hq: int, Hkv: int, D: int, esize: int,
+                q_esize: int) -> tuple[float, str]:
+    """The valid K/V prefix read once plus q and out, against 4 D flops per
+    query head and valid key (q.k and p.v) at the f32 peak."""
+    n_keys = int(lengths.sum())
+    B = lengths.numel()
+    nbytes = 2 * n_keys * Hkv * D * esize + 2 * B * Hq * D * q_esize + 4 * B
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4 * D * Hq * n_keys / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ssd_bound(B: int, T: int, H: int, P: int, N: int, L: int, esize: int) -> tuple[float, str]:
+    """x, loga, B, C, y and the state moved once, against 2 L^2 N flops per
+    chunk plus 2 L^2 P + 4 L P N per head and chunk at the f32 peak."""
+    nbytes = (2 * B * T * H * P + 2 * B * T * N) * esize + B * T * H * 4 + B * H * P * N * 4
+    flops = B * (T // L) * (2 * L * L * N + H * (2 * L * L * P + 4 * L * P * N))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_serve_timing(device, runs: dict) -> dict:
+    """Both kernels at their serve-path shapes, beside their plain versions,
+    their bounds and (decode attention) SDPA as a yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.block_attention import (blockify, deblockify, decode_attention,
+                                                     decode_attention_ref)
+    from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_scan
+
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    cfg = _serve_cfg("qwen3-0.6b")
+    B, Hq, Hkv, D, bs = SERVE_LANES, cfg.padded_q_heads, cfg.stored_kv_heads, cfg.head_dim, cfg.kv_block
+    nb = -(-SERVE_MAX_SEQ // bs)
+    lengths = torch.as_tensor(runs["qwen3-0.6b"]["decode_lengths"], dtype=torch.int32,
+                              device=device)
+    q = rng_tensor(rng, (B, Hq, D), torch.bfloat16, device)
+    kb = rng_tensor(rng, (B, nb, Hkv, bs, D), torch.bfloat16, device)
+    vb = rng_tensor(rng, (B, nb, Hkv, bs, D), torch.bfloat16, device)
+    # the yardstick: SDPA over the deblockified cache, same mask, laid out outside the window
+    kd, vd = (deblockify(t).permute(0, 2, 1, 3).contiguous() for t in (kb, vb))
+    mask = (torch.arange(nb * bs, device=device)[None, :] < lengths[:, None].long())[:, None, None]
+    q4 = q[:, :, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask, enable_gqa=True)
+
+    got = decode_attention(q, kb, vb, lengths)
+    want = decode_attention_ref(q, deblockify(kb), deblockify(vb), lengths)
+    err, ex = max_abs(got, want), _excess(got, want, ATTN_TOL[torch.bfloat16])
+    err_lib = max_abs(got, sdpa()[:, :, 0])
+    ms, lo, hi = _time_ms(lambda: decode_attention(q, kb, vb, lengths), 200)
+    plain_ms, p_lo, p_hi = _time_ms(
+        lambda: decode_attention_ref(q, deblockify(kb), deblockify(vb), lengths), 20, warmup=3)
+    lib_ms, l_lo, l_hi = _time_ms(sdpa, 200)
+    bound_ms, bound_by = _attn_bound(lengths, Hq, Hkv, D, 2, 2)
+    log(f"[timing] decode_attention qwen3-0.6b decode tick: B={B} Hq={Hq} Hkv={Hkv} D={D} "
+        f"bs={bs} nb={nb} bfloat16, lengths {lengths.tolist()} (a mid-run tick of the serve "
+        f"path): kernel {ms:.6f} ms (min {lo:.6f}, max {hi:.6f}), plain {plain_ms:.6f} ms "
+        f"(min {p_lo:.6f}, max {p_hi:.6f}), scaled_dot_product_attention over the "
+        f"deblockified cache {lib_ms:.6f} ms (min {l_lo:.6f}, max {l_hi:.6f}); bound "
+        f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; max|kernel-plain| "
+        f"{err!r} ({ex:.3f} x the limit), max|kernel-sdpa| {err_lib!r}")
+    if not ex <= 1.0:
+        raise AssertionError(f"decode_attention differs from plain at the path shape: {err!r}")
+    rows["decode_attention"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": lib_ms, "err": err}
+
+    cfg = _serve_cfg("mamba2-370m")
+    H, P, N, L = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    for Bb in (1, 4):
+        T = SERVE_PROMPTS[1]
+        x = rng_tensor(rng, (Bb, T, H, P), torch.bfloat16, device)
+        loga = -rng_tensor(rng, (Bb, T, H), torch.float32, device).abs() * 0.5
+        Bm = (rng_tensor(rng, (Bb, T, N), torch.float32, device) / math.sqrt(N)).bfloat16()
+        C = (rng_tensor(rng, (Bb, T, N), torch.float32, device) / math.sqrt(N)).bfloat16()
+        y, st = ssd_scan(x, loga, Bm, C, chunk=L)
+        wy, wst = ssd_chunked_ref(x, loga, Bm, C, L)
+        err = max(max_abs(y, wy), max_abs(st, wst))
+        ex = max(_excess(y, wy, SSD_TOL[torch.bfloat16]), _excess(st, wst, STATE_TOL))
+        ms, lo, hi = _time_ms(lambda: ssd_scan(x, loga, Bm, C, chunk=L), 20, warmup=3)
+        plain_ms, p_lo, p_hi = _time_ms(lambda: ssd_chunked_ref(x, loga, Bm, C, L), 5, warmup=2)
+        bound_ms, bound_by = _ssd_bound(Bb, T, H, P, N, L, 2)
+        log(f"[timing] ssd_scan mamba2-370m prefill: B={Bb} T={T} H={H} P={P} N={N} chunk={L} "
+            f"bfloat16: kernel {ms:.6f} ms (min {lo:.6f}, max {hi:.6f}), plain {plain_ms:.6f} ms "
+            f"(min {p_lo:.6f}, max {p_hi:.6f}); bound {bound_ms:.6f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound; max|kernel-plain| {err!r} ({ex:.3f} x the limit)")
+        if not ex <= 1.0:
+            raise AssertionError(f"ssd_scan differs from plain at the path shape: {err!r}")
+        if Bb == 1:
+            rows["ssd_scan"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": None, "err": err}
+    return rows
+
+
 def log_clocks() -> None:
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
@@ -658,6 +1168,9 @@ def main() -> int:
     os.environ.setdefault("REPRO_AUTOTUNE_CACHE", str(ROOT / "build" / "autotune"))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # float32 products in full float32 (the plain versions are the yardstick)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     def cut(space):
@@ -674,6 +1187,10 @@ def main() -> int:
     phase_compressed(device, cut(COMPRESSED_SPACE))
     rows = phase_timing(device, main_run, irr_run)
     fetch_row = phase_fetch_timing(irr_run)
+    worst_attn = phase_attn_kernel(device)
+    worst_ssd = phase_ssd_kernel(device)
+    runs = {arch: phase_serve(device, arch) for arch in SERVE_ARCHS}
+    serve_rows = phase_serve_timing(device, runs)
     log_clocks()
     row = rows[0]
     kernels = [{
@@ -697,6 +1214,18 @@ def main() -> int:
         "max_abs_err": max(worst_fetch, irr_run["err"]),
         **fetch_row,
     }]
+    for name, source, replaces, arch, worst_k in (
+            ("decode_attention", "src/repro_torch/kernels/block_attention/csrc/block_attention.cu",
+             "src/repro/kernels/block_attention/block_attention.py:78", "qwen3-0.6b", worst_attn),
+            ("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd/ssd.py:87", "mamba2-370m", worst_ssd)):
+        row = serve_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": runs[arch]["launches"][name],
+            "max_abs_err": max(worst_k, row["err"]),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

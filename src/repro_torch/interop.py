@@ -5,18 +5,20 @@ JAX package (``{axis: array}``) moves onto a torch device with
 :func:`facets_from_numpy` and back with :func:`facets_to_numpy`; a layout
 the JAX autotuner chose (its ``LayoutCandidate`` fields) is rebuilt as the
 port's candidate with :func:`candidate_from_key`, so the port runs exactly
-that layout (``repro_torch.cfa.compile(..., layout=candidate)``).
+that layout (``repro_torch.cfa.compile(..., layout=candidate)``).  A
+language model's parameters (the reference's ``init_lm`` pytree as numpy
+arrays) become the port's ``LM`` with :func:`lm_from_numpy`.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.cfa.autotune import LayoutCandidate
 
-__all__ = ["facets_from_numpy", "facets_to_numpy", "candidate_from_key"]
+__all__ = ["facets_from_numpy", "facets_to_numpy", "candidate_from_key", "lm_from_numpy"]
 
 
 def facets_from_numpy(
@@ -45,3 +47,53 @@ def candidate_from_key(
         ext_dirs = tuple((int(k), int(c)) for k, c in items)
     return LayoutCandidate("cfa", tuple(int(t) for t in tile),
                            ext_dirs=ext_dirs, contiguity=contiguity)
+
+
+def lm_from_numpy(cfg, params: Mapping[str, Any], device: "torch.device | str" = "cuda"):
+    """The port's ``LM`` for ``cfg`` holding the reference's parameters.
+
+    ``params`` is the reference's ``init_lm`` pytree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): ``embed``, ``final_norm`` and
+    ``periods``, whose leaves carry a leading ``n_periods`` axis — period
+    ``p``'s position ``i`` becomes layer ``p * len(cfg.period) + i``.  A
+    norm's ``{"scale": s}`` becomes one parameter.  Matrices are rounded to
+    the compute dtype as the reference's per-call cast rounds them.  Every
+    parameter of the port must be set by exactly one leaf, and every leaf
+    must set one."""
+    from repro_torch.models.lm import LM
+
+    model = LM(cfg, device=device)
+    own = dict(model.named_parameters())
+    loaded: set[str] = set()
+
+    def put(name: str, arr: np.ndarray) -> None:
+        if name not in own or name in loaded:
+            raise ValueError(f"parameter {name!r} is not the port's or is set twice")
+        p = own[name]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != the port's {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.tensor(arr).to(p.dtype))
+        loaded.add(name)
+
+    def walk(prefix: tuple, tree: Mapping) -> None:
+        for key, val in tree.items():
+            path = prefix + (str(key),)
+            if isinstance(val, Mapping):
+                walk(path, val)
+                continue
+            arr = np.asarray(val)
+            if path[-1] == "scale":  # a norm: {"scale": s}
+                path = path[:-1]
+            if path[0] == "periods":
+                i = int(path[1].removeprefix("pos"))
+                for p in range(cfg.n_periods):
+                    put(".".join(("layers", str(p * len(cfg.period) + i)) + path[2:]), arr[p])
+            else:
+                put(".".join(path), arr)
+
+    walk((), params)
+    missing = sorted(set(own) - loaded)
+    if missing:
+        raise ValueError(f"parameters not set by the pytree: {missing}")
+    return model

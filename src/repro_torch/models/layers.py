@@ -1,0 +1,320 @@
+"""Core model layers in PyTorch: norms, RoPE, GQA attention (prefill and
+decode over the facet-layout KV cache), SwiGLU MLP, embeddings — the port
+of ``repro/models/layers.py`` for inference.
+
+Each layer is an ``nn.Module`` holding its weights (``Attention``, ``MLP``,
+``Embedding``) plus a module-level function under the reference's name
+(``attention``, ``decode_attention_blocks``, ``mlp``, ``embed``,
+``unembed``), so each has a counterpart to find.  Weights used in matrix
+products are kept in the configuration's compute dtype, cast once at load
+time (the reference casts its float32 parameters per call, which gives the
+same values); norm scales stay float32.  Prefill attention is the
+reference's flash-style chunked attention in plain PyTorch (f32 online
+softmax, no (S, S) tensor); decode attention appends the new token's K/V to
+the block cache in place and runs the hand-written ``decode_attention``
+kernel (its plain version on the CPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.block_attention import append_token, decode_attention
+
+from .config import ArchConfig
+
+__all__ = [
+    "rms_norm", "apply_rope",
+    "Attention", "attention", "decode_attention_blocks",
+    "MLP", "mlp",
+    "Embedding", "embed", "unembed",
+    "KVCache",
+]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+
+def torch_dtype(name: "str | torch.dtype") -> torch.dtype:
+    """A configuration's dtype name as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freqs = torch.exp(-math.log(theta) * ar / half)
+    ang = positions.to(device=x.device, dtype=torch.float32)[..., None, None] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _normal(shape, scale: float, dtype: torch.dtype, generator, device) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in float32, then cast (the reference's
+    ``_normal`` followed by its per-call compute-dtype cast)."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return (scale * x).to(dtype)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """Facet(block)-layout KV cache: (B, nb, Hkv_stored, block, Dh)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def zeros(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
+              device="cpu") -> "KVCache":
+        bs = cfg.kv_block
+        nb = -(-seq // bs)
+        shape = (batch, nb, cfg.stored_kv_heads, bs, cfg.head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+
+class Attention(nn.Module):
+    """GQA self-attention weights: wq (d, Hq, Dh), wk/wv (d, Hkv, Dh),
+    wo (Hq, Dh, d) in the compute dtype; q/k norm scales (Dh,) in float32
+    when the configuration has ``qk_norm``."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        d, hq, hkv, dh = cfg.d_model, cfg.padded_q_heads, cfg.stored_kv_heads, cfg.head_dim
+        cd = torch_dtype(cfg.compute_dtype)
+        shapes = {"wq": (d, hq, dh), "wk": (d, hkv, dh), "wv": (d, hkv, dh), "wo": (hq, dh, d)}
+        for name, shape in shapes.items():
+            setattr(self, name, _param(torch.zeros(shape, dtype=cd, device=device)))
+        if cfg.qk_norm:
+            self.q_norm = _param(torch.ones(dh, device=device))
+            self.k_norm = _param(torch.ones(dh, device=device))
+        if generator is not None:
+            self._init(generator)
+
+    @torch.no_grad()
+    def _init(self, g: torch.Generator) -> None:
+        cfg = self.cfg
+        d, hq, dh = cfg.d_model, cfg.padded_q_heads, cfg.head_dim
+        dev, cd = self.wq.device, self.wq.dtype
+        scale = d ** -0.5
+        wq = _normal((d, hq, dh), scale, torch.float32, g, dev)
+        # kv weights are drawn per *real* kv head, then replicated, so the
+        # stored-kv expansion is function-preserving GQA
+        rep = cfg.stored_kv_heads // cfg.n_kv_heads
+        wk = _normal((d, cfg.n_kv_heads, dh), scale, torch.float32, g, dev)
+        wv = _normal((d, cfg.n_kv_heads, dh), scale, torch.float32, g, dev)
+        wo = _normal((hq, dh, d), (hq * dh) ** -0.5, torch.float32, g, dev)
+        # padded query heads get zero weights: they contribute nothing, exactly
+        real = (torch.arange(hq, device=dev) < cfg.n_heads).float()
+        self.wq.copy_((wq * real[None, :, None]).to(cd))
+        self.wk.copy_(wk.repeat_interleave(rep, dim=1).to(cd))
+        self.wv.copy_(wv.repeat_interleave(rep, dim=1).to(cd))
+        self.wo.copy_((wo * real[:, None, None]).to(cd))
+
+
+def _project_qkv(m: Attention, x, positions):
+    cfg = m.cfg
+    xc = x.to(m.wq.dtype)
+    q = torch.einsum("bsd,dhk->bshk", xc, m.wq)
+    k = torch.einsum("bsd,dhk->bshk", xc, m.wk)
+    v = torch.einsum("bsd,dhk->bshk", xc, m.wv)
+    if cfg.qk_norm:
+        q = rms_norm(q, m.q_norm)
+        k = rms_norm(k, m.k_norm)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _chunked_attention(q, k, v, *, chunk: int):
+    """Causal flash-style attention in plain PyTorch: a loop over query
+    chunks, an inner loop over key chunks with an f32 online softmax (the
+    reference's two nested scans).  No (S, S) tensor is materialised."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    cq, ck = min(chunk, Sq), min(chunk, Sk)
+    nq, nk = -(-Sq // cq), -(-Sk // ck)
+    qpad, kpad = nq * cq - Sq, nk * ck - Sk
+    dev = q.device
+    qf = F.pad(q, (0, 0, 0, 0, 0, qpad)).float()
+    kf = F.pad(k, (0, 0, 0, 0, 0, kpad)).float()
+    vf = F.pad(v, (0, 0, 0, 0, 0, kpad)).float()
+    scale = Dh ** -0.5
+    kv_heads = k.shape[2]
+    g = H // kv_heads
+
+    qf = qf.reshape(B, nq, cq, kv_heads, g, Dh).permute(1, 0, 3, 4, 2, 5)
+    kf = kf.reshape(B, nk, ck, kv_heads, Dh).permute(1, 0, 3, 2, 4)
+    vf = vf.reshape(B, nk, ck, kv_heads, Dh).permute(1, 0, 3, 2, 4)
+
+    q_pos = torch.arange(nq * cq, device=dev).reshape(nq, cq)
+    k_pos = torch.arange(nk * ck, device=dev).reshape(nk, ck)
+    k_valid = k_pos < Sk
+
+    outs = []
+    for i in range(nq):
+        qc, qp = qf[i], q_pos[i]  # (B, kvh, g, cq, Dh), (cq,)
+        m = torch.full((B, kv_heads, g, cq), float("-inf"), device=dev)
+        l = torch.zeros((B, kv_heads, g, cq), device=dev)
+        acc = torch.zeros((B, kv_heads, g, cq, Dh), device=dev)
+        for j in range(nk):
+            kc, vc, kp, kval = kf[j], vf[j], k_pos[j], k_valid[j]
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+            mask = kval[None, None, None, None, :] & (
+                qp[None, None, None, :, None] >= kp[None, None, None, None, :])
+            s = torch.where(mask, s, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            pexp = torch.exp(s - m_safe[..., None])
+            pexp = torch.where(mask, pexp, 0.0)
+            l = l * alpha + pexp.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", pexp, vc)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    # (nq, B, kvh, g, cq, Dh) -> (B, Sq, H, Dh)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, nq * cq, H, Dh)
+    return out[:, :Sq].to(q.dtype)
+
+
+def attention(
+    m: Attention,
+    x: torch.Tensor,  # (B, S, d)
+    *,
+    positions: torch.Tensor | None = None,  # (S,) or (B, S)
+    chunk: int = 512,
+    cache: KVCache | None = None,  # if given, filled with the block-layout K/V
+) -> tuple[torch.Tensor, KVCache | None]:
+    """Causal self-attention with RoPE over a full sequence (train forward /
+    prefill).
+
+    With ``cache``, the sequence's K/V are written into its blocks in place
+    (positions past the sequence become zeros) and the cache is returned."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(m, x, positions)
+    out = _chunked_attention(q, k, v, chunk=chunk)
+    if cache is not None:
+        nb, bs = cache.k.shape[1], cache.k.shape[3]
+        if S > nb * bs:
+            raise ValueError(f"{S} tokens do not fit the cache's {nb * bs} slots")
+
+        def to_blocks(t):
+            t = F.pad(t, (0, 0, 0, 0, 0, nb * bs - S))
+            return t.reshape(B, nb, bs, t.shape[2], t.shape[3]).permute(0, 1, 3, 2, 4)
+
+        cache.k.copy_(to_blocks(k))
+        cache.v.copy_(to_blocks(v))
+    y = torch.einsum("bshk,hkd->bsd", out.to(m.wo.dtype), m.wo)
+    return y, cache
+
+
+def decode_attention_blocks(
+    m: Attention,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: KVCache,
+    position,  # int or 0-d tensor, or (B,) per-lane positions
+) -> tuple[torch.Tensor, KVCache]:
+    """One decode step over the facet(block)-layout cache.
+
+    The new token's K/V are appended with a single in-block store per head
+    (in place); attention over the valid prefix ``pos + 1`` runs the
+    ``decode_attention`` kernel.  ``position`` may be per lane (continuous
+    batching): each sequence writes and masks at its own offset."""
+    B = x.shape[0]
+    cfg = m.cfg
+    pos = torch.as_tensor(position, device=x.device).long()
+    qpos = pos[:, None] if pos.dim() == 1 else pos[None, None]
+    q, k, v = _project_qkv(m, x, qpos)
+    append_token(cache.k, cache.v, k[:, 0], v[:, 0], pos)
+    lengths = (pos + 1).expand(B)
+    out = decode_attention(q[:, 0].contiguous(), cache.k, cache.v, lengths)  # (B, Hq, Dh)
+    out = out.reshape(B, 1, cfg.padded_q_heads, cfg.head_dim)
+    y = torch.einsum("bshk,hkd->bsd", out.to(m.wo.dtype), m.wo)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU weights w1/w3 (d, f) and w2 (f, d) in the compute dtype."""
+
+    def __init__(self, cfg: ArchConfig, d_ff: int | None = None, *, device=None,
+                 generator=None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        cd = torch_dtype(cfg.compute_dtype)
+        self.w1 = _param(torch.zeros((d, f), dtype=cd, device=device))
+        self.w3 = _param(torch.zeros((d, f), dtype=cd, device=device))
+        self.w2 = _param(torch.zeros((f, d), dtype=cd, device=device))
+        if generator is not None:
+            with torch.no_grad():
+                dev = self.w1.device
+                self.w1.copy_(_normal((d, f), d ** -0.5, cd, generator, dev))
+                self.w3.copy_(_normal((d, f), d ** -0.5, cd, generator, dev))
+                self.w2.copy_(_normal((f, d), f ** -0.5, cd, generator, dev))
+
+
+def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
+    xc = x.to(m.w1.dtype)
+    h = F.silu(xc @ m.w1) * (xc @ m.w3)
+    return h @ m.w2
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding (padded vocab)
+# ---------------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    """Token table (padded_vocab, d) and output head (d, padded_vocab) in the
+    compute dtype."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+        super().__init__()
+        vp, d = cfg.padded_vocab, cfg.d_model
+        cd = torch_dtype(cfg.compute_dtype)
+        self.table = _param(torch.zeros((vp, d), dtype=cd, device=device))
+        self.head = _param(torch.zeros((d, vp), dtype=cd, device=device))
+        if generator is not None:
+            with torch.no_grad():
+                dev = self.table.device
+                self.table.copy_(_normal((vp, d), 1.0, cd, generator, dev))
+                self.head.copy_(_normal((d, vp), d ** -0.5, cd, generator, dev))
+
+
+def embed(m: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    return m.table[tokens.to(m.table.device)]
+
+
+def unembed(m: Embedding, x: torch.Tensor) -> torch.Tensor:
+    return x.to(m.head.dtype) @ m.head  # (B, S, padded_vocab)

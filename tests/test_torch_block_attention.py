@@ -1,0 +1,292 @@
+"""The port's facet-layout decode attention (repro_torch.kernels.block_attention)
+on CPU tensors, where the wrapper runs the kernel's plain PyTorch version.
+
+The CUDA kernel itself is held against this plain version on the card by
+``chip_smoke.py``.  Here, on inputs drawn with ``numpy.random.default_rng``
+and handed to both packages:
+
+* the plain path against the reference's Pallas kernel (``interpret=True``)
+  and its ``decode_attention_ref`` on ``tests/test_kernels.py``'s cases and
+  the partial final block, in float32 (tolerance 2e-5) and bfloat16 (3e-2,
+  the reference's own);
+* ``blockify``/``deblockify``/``append_token`` bit for bit;
+* the kernel's walk (key tiles of 64 positions over the valid prefix only,
+  a tile straddling two blocks, the masked tail, the all -inf guard),
+  transliterated to numpy from ``csrc/block_attention.cu``, against the
+  plain version;
+* the rejections, the launch counter and the C entry point's arity.
+"""
+import ast
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax  # noqa: F401  (both frameworks in one process)
+import jax.numpy as jnp
+
+from repro.kernels.block_attention import append_token as jax_append
+from repro.kernels.block_attention import blockify as jax_blockify
+from repro.kernels.block_attention import deblockify as jax_deblockify
+from repro.kernels.block_attention import decode_attention as jax_decode
+from repro.kernels.block_attention import decode_attention_ref as jax_decode_ref
+from repro_torch.kernels.block_attention import (
+    append_token,
+    blockify,
+    deblockify,
+    decode_attention,
+    decode_attention_ref,
+)
+from repro_torch.kernels.block_attention import block_attention as attn_mod
+
+SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
+
+CASES = [  # tests/test_kernels.py's cases: B, Hq, Hkv, D, S, bs
+    (2, 8, 2, 64, 256, 64),
+    (1, 4, 4, 32, 128, 32),   # MHA (no grouping)
+    (3, 16, 1, 64, 192, 64),  # MQA
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+@pytest.fixture(autouse=True)
+def flush_denormal():
+    torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)  # torch's default
+
+
+def _inputs(seed, B, Hq, Hkv, D, S, lengths=None):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
+    kc = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    vc = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    if lengths is None:
+        lengths = rng.integers(1, S + 1, size=(B,))
+    return q, kc, vc, np.asarray(lengths, np.int32)
+
+
+def _both(arrays, dtype):
+    """The same numpy arrays as JAX and torch tensors of one dtype (both
+    round float32 to bfloat16 to nearest even)."""
+    jdt, tdt, _ = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _close(got: torch.Tensor, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,Hq,Hkv,D,S,bs", CASES)
+def test_plain_version_matches_reference_kernel_and_ref(B, Hq, Hkv, D, S, bs, dtype):
+    q, kc, vc, lengths = _inputs(7, B, Hq, Hkv, D, S)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, kc, vc), dtype)
+    tol = DTYPES[dtype][2]
+    got = decode_attention(tq, blockify(tk, bs), blockify(tv, bs), torch.from_numpy(lengths))
+    assert got.dtype == tq.dtype and got.shape == (B, Hq, D)
+    want = jax_decode(jq, jax_blockify(jk, bs), jax_blockify(jv, bs), jnp.asarray(lengths))
+    _close(got, want, tol)
+    _close(got, jax_decode_ref(jq, jk, jv, jnp.asarray(lengths)), tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_partial_final_block(dtype):
+    """Lengths that do not align with block boundaries mask correctly."""
+    B, Hq, Hkv, D, S, bs = 2, 4, 2, 32, 128, 32
+    q, kc, vc, lengths = _inputs(3, B, Hq, Hkv, D, S, lengths=[1, 33])
+    (jq, jk, jv), (tq, tk, tv) = _both((q, kc, vc), dtype)
+    got = decode_attention(tq, blockify(tk, bs), blockify(tv, bs), torch.from_numpy(lengths))
+    want = jax_decode(jq, jax_blockify(jk, bs), jax_blockify(jv, bs), jnp.asarray(lengths))
+    _close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ref_matches_reference_ref_over_the_canonical_cache(dtype):
+    q, kc, vc, lengths = _inputs(5, 2, 6, 3, 16, 40, lengths=[40, 17])
+    (jq, jk, jv), (tq, tk, tv) = _both((q, kc, vc), dtype)
+    got = decode_attention_ref(tq, tk, tv, torch.from_numpy(lengths))
+    _close(got, jax_decode_ref(jq, jk, jv, jnp.asarray(lengths)), DTYPES[dtype][2])
+
+
+def test_mixed_precision_query_over_a_bf16_cache():
+    """The model's pairing under float32 compute: a float32 query over the
+    bfloat16 cache; the output keeps the query's dtype."""
+    q, kc, vc, lengths = _inputs(9, 2, 4, 2, 32, 64)
+    kb = torch.from_numpy(kc).to(torch.bfloat16)
+    vb = torch.from_numpy(vc).to(torch.bfloat16)
+    got = decode_attention(torch.from_numpy(q), blockify(kb, 16), blockify(vb, 16),
+                           torch.from_numpy(lengths))
+    assert got.dtype == torch.float32
+    want = jax_decode(jnp.asarray(q), jax_blockify(jnp.asarray(kc, jnp.bfloat16), 16),
+                      jax_blockify(jnp.asarray(vc, jnp.bfloat16), 16), jnp.asarray(lengths))
+    _close(got, want, 2e-5)
+
+
+def test_blockify_roundtrip_and_append_are_bit_exact():
+    rng = np.random.default_rng(11)
+    B, S, H, D, bs = 2, 64, 4, 16, 16
+    kc = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    blocks = blockify(torch.from_numpy(kc), bs)
+    assert blocks.is_contiguous()
+    np.testing.assert_array_equal(blocks.numpy(), np.asarray(jax_blockify(jnp.asarray(kc), bs)))
+    np.testing.assert_array_equal(deblockify(blocks).numpy(), kc)
+    np.testing.assert_array_equal(
+        deblockify(blocks).numpy(), np.asarray(jax_deblockify(jax_blockify(jnp.asarray(kc), bs))))
+    k_new = rng.normal(size=(B, H, D)).astype(np.float32)
+    want, _ = jax_append(jax_blockify(jnp.asarray(kc), bs), jax_blockify(jnp.asarray(kc), bs),
+                         jnp.asarray(k_new), jnp.asarray(k_new), jnp.int32(37))
+    kb, vb = blocks.clone(), blocks.clone()
+    out_k, out_v = append_token(kb, vb, torch.from_numpy(k_new), torch.from_numpy(k_new), 37)
+    assert out_k is kb and out_v is vb  # in place
+    np.testing.assert_array_equal(kb.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(vb.numpy(), np.asarray(want))
+    back = deblockify(kb)
+    np.testing.assert_array_equal(back[:, 37].numpy(), k_new)
+    np.testing.assert_array_equal(back[:, :37].numpy(), kc[:, :37])
+
+
+def test_append_per_lane_positions_equal_one_append_per_row():
+    rng = np.random.default_rng(12)
+    B, S, H, D, bs = 3, 48, 2, 8, 16
+    blocks = blockify(torch.from_numpy(rng.normal(size=(B, S, H, D)).astype(np.float32)), bs)
+    new = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    pos = [0, 17, 47]
+    lanes = blocks.clone()
+    append_token(lanes, lanes.clone(), new, new, torch.tensor(pos))
+    for b, p in enumerate(pos):
+        row = blocks[b:b + 1].clone()
+        append_token(row, row.clone(), new[b:b + 1], new[b:b + 1], p)
+        assert torch.equal(lanes[b:b + 1], row)
+
+
+def test_append_past_the_capacity_raises():
+    blocks = torch.zeros((2, 2, 1, 4, 3))
+    new = torch.ones((2, 1, 3))
+    with pytest.raises(IndexError, match="outside the cache's 8 slots"):
+        append_token(blocks, blocks.clone(), new, new, 8)
+    with pytest.raises(IndexError, match="outside"):
+        append_token(blocks, blocks.clone(), new, new, torch.tensor([3, -1]))
+    with pytest.raises(ValueError, match="scalar or"):
+        append_token(blocks, blocks.clone(), new, new, torch.tensor([1, 2, 3]))
+
+
+def _kernel_walk(q, k_blocks, v_blocks, lengths, tile=64):
+    """numpy transliteration of csrc/block_attention.cu: per (kv head, row),
+    key tiles of ``tile`` positions over [0, length) only, position ->
+    (pos // bs, pos % bs), masked tail -inf, online softmax with the
+    all -inf guard, out = acc / l."""
+    B, nb, Hkv, bs, D = k_blocks.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    out = np.zeros((B, Hq, D), np.float32)
+    for b in range(B):
+        length = min(int(lengths[b]), nb * bs)
+        for h in range(Hkv):
+            qs = q[b, h * G:(h + 1) * G].astype(np.float32)
+            m = np.full(G, -np.inf, np.float32)
+            l = np.zeros(G, np.float32)
+            acc = np.zeros((G, D), np.float32)
+            for base in range(0, length, tile):
+                pos = np.arange(base, base + tile)
+                valid = pos < length
+                pv = np.where(valid, pos, 0)
+                keys = k_blocks[b, pv // bs, h, pv % bs].astype(np.float32)  # (tile, D)
+                vals = v_blocks[b, pv // bs, h, pv % bs].astype(np.float32)
+                s = np.where(valid[None], qs @ keys.T / np.float32(math.sqrt(D)), -np.inf)
+                m_new = np.maximum(m, s.max(axis=1))
+                fin = np.isfinite(m_new)
+                p = np.where(fin[:, None], np.exp(s - np.where(fin, m_new, 0)[:, None]), 0.0)
+                alpha = np.where(fin, np.exp(m - np.where(fin, m_new, 0)), 1.0)
+                l = l * alpha + p.sum(axis=1)
+                acc = acc * alpha[:, None] + p[:, valid] @ vals[valid]
+                m = m_new
+            with np.errstate(invalid="ignore", divide="ignore"):
+                out[b, h * G:(h + 1) * G] = acc / l[:, None]
+    return out
+
+
+@pytest.mark.parametrize("bs,lengths", [
+    (16, [1, 64, 65, 130]),   # tiles span four blocks; a tile of exactly one block
+    (48, [47, 48, 49, 192]),  # tiles straddle block boundaries
+    (256, [1, 256, 257, 512]),  # qwen3's block size; lengths as in chip_smoke.py
+])
+def test_the_kernels_walk_matches_the_plain_version(bs, lengths):
+    B, Hq, Hkv, D = 4, 8, 4, 32
+    S = max(lengths) + (-max(lengths)) % bs
+    q, kc, vc, lengths = _inputs(21, B, Hq, Hkv, D, S, lengths=lengths)
+    kb, vb = blockify(torch.from_numpy(kc), bs), blockify(torch.from_numpy(vc), bs)
+    want = decode_attention(torch.from_numpy(q), kb, vb, torch.from_numpy(lengths))
+    got = _kernel_walk(q, kb.numpy(), vb.numpy(), lengths)
+    np.testing.assert_allclose(got, want.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_plain_version_is_the_wrapper_on_cpu_and_does_not_count():
+    q, kc, vc, lengths = _inputs(1, 2, 4, 2, 16, 32)
+    args = (torch.from_numpy(q), blockify(torch.from_numpy(kc), 8),
+            blockify(torch.from_numpy(vc), 8), torch.from_numpy(lengths))
+    before = [a.clone() for a in args]
+    decode_attention.launches = 0
+    got = decode_attention(*args)
+    assert decode_attention.launches == 0
+    assert torch.equal(got, decode_attention_ref(args[0], torch.from_numpy(kc),
+                                                 torch.from_numpy(vc), args[3]))
+    assert all(torch.equal(a, b) for a, b in zip(args, before))  # read only
+
+
+def test_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros((2, 6, 8))
+    k = torch.zeros((2, 1, 4, 4, 8))
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        decode_attention(q, k, k, torch.ones(2, dtype=torch.int32))
+    q = torch.zeros((2, 8, 8))
+    with pytest.raises(ValueError, match="lengths must be"):
+        decode_attention(q, k, k, torch.ones(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="does not match the cache"):
+        decode_attention(torch.zeros((2, 8, 4)), k, k, torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"want q \(B,Hq,D\)"):
+        decode_attention(q, k, k[:, :, :2], torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        decode_attention(q.to("meta"), k.to("meta"), k.to("meta"), torch.ones(2))
+
+
+def test_c_entry_point_matches_the_ctypes_binding():
+    """The wrapper's argtypes and the .cu entry point agree in arity."""
+    src = (SRC / "block_attention" / "csrc" / "block_attention.cu").read_text()
+    sig = re.search(r'extern "C" int decode_attention\((.*?)\)\s*\{', src, re.S).group(1)
+    n_params = len([p for p in sig.split(",") if p.strip()])
+    tree = ast.parse((SRC / "block_attention" / "block_attention.py").read_text())
+    argtypes = next(node.value for node in ast.walk(tree)
+                    if isinstance(node, ast.Assign)
+                    and any(getattr(t, "attr", None) == "argtypes" for t in node.targets))
+    assert len(argtypes.elts) == n_params == 14
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
+    """On a card the wrapper launches the kernel (and counts it); the plain
+    version is never its way out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    q, kc, vc, lengths = _inputs(7, *CASES[0][:5])
+    bs = CASES[0][5]
+    args = (torch.from_numpy(q).cuda(), blockify(torch.from_numpy(kc), bs).cuda(),
+            blockify(torch.from_numpy(vc), bs).cuda(), torch.from_numpy(lengths).cuda())
+    want = decode_attention_ref(args[0], torch.from_numpy(kc).cuda(),
+                                torch.from_numpy(vc).cuda(), args[3])
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(attn_mod, "decode_attention_ref", plain)
+    before = decode_attention.launches
+    got = decode_attention(*args)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

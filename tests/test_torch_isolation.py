@@ -48,7 +48,9 @@ def test_the_scan_sees_the_whole_port():
     rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "src/repro_torch/cfa.py",
             "src/repro_torch/core/cfa/transform.py",
-            "src/repro_torch/kernels/stencil/stencil.py"} <= rel
+            "src/repro_torch/kernels/stencil/stencil.py",
+            "src/repro_torch/models/lm.py", "src/repro_torch/serve/scheduler.py",
+            "src/repro_torch/launch/serve.py"} <= rel
     # and it recognises every spelling of a forbidden import
     probe = ROOT / "src" / "repro_torch" / "cfa.py"
     names = _imported_modules(probe)
@@ -67,6 +69,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.cfa, repro_torch.interop, repro_torch.kernels.stencil\n"
+        "import repro_torch.models.lm, repro_torch.serve.scheduler, repro_torch.launch.serve\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

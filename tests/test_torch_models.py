@@ -1,0 +1,371 @@
+"""The port's LM stack (repro_torch.models, configs, interop.lm_from_numpy) on
+the CPU against the reference package on the same weights.
+
+The reference's ``init_lm`` pytree (``PRNGKey(0)``) is carried across as
+numpy arrays with ``lm_from_numpy``; inputs come from
+``numpy.random.default_rng``.  The SMOKE configs (2 layers, d_model 64) are
+run with ``compute_dtype="float32"`` and with the default bfloat16:
+
+* per module — ``rms_norm``, ``apply_rope``, prefill ``attention`` (with
+  its block cache), ``decode_attention_blocks`` (scalar and per-lane
+  positions), ``mlp``, ``mamba_train``, ``mamba_decode`` — within 1e-4 in
+  float32;
+* the slice — ``lm_forward``, ``lm_prefill`` and three ``lm_decode`` steps,
+  logits and caches, for qwen3-0.6b and mamba2-370m: within 1e-4 with float32
+  compute, and within the reference's relative max error of 0.06
+  (``tests/test_archs.py``) with bfloat16 compute; qwen3 also at ``tp=4``
+  (replicated stored KV heads) and ``tp=8`` (padded query heads and vocab).
+
+Cache tensors stored in bfloat16 (the KV cache and the conv tails, as in the
+reference, also under float32 compute) are compared within one bfloat16
+rounding step (2^-7 relative): the port computes the stored value to ~1e-7
+of the reference, and a value that close to a rounding midpoint may round
+the other way.  Float32 cache tensors (the SSM state) are held to 1e-4.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_smoke
+from repro.models import layers as jl
+from repro.models import mamba2 as jm
+from repro.models.lm import init_lm as jax_init_lm
+from repro.models.lm import lm_decode as jax_lm_decode
+from repro.models.lm import lm_forward as jax_lm_forward
+from repro.models.lm import lm_prefill as jax_lm_prefill
+from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
+from repro_torch.interop import lm_from_numpy
+from repro_torch.models import layers as tl
+from repro_torch.models import mamba2 as tm
+from repro_torch.models.lm import LM, init_caches, init_lm, lm_decode, lm_forward, lm_prefill
+
+BF16_STEP = 2.0 ** -7  # one bfloat16 rounding step, relative to the value
+UNSUPPORTED = {  # arch -> the later slice its NotImplementedError names
+    "llama-3.2-vision-11b": "cross-attention",
+    "olmoe-1b-7b": "MoE",
+    "llama4-scout-17b-a16e": "MoE",
+    "jamba-1.5-large-398b": "MoE",
+    "seamless-m4t-large-v2": "encoder-decoder",
+}
+
+
+@pytest.fixture(autouse=True)
+def flush_denormal():
+    torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)  # torch's default
+
+
+@functools.lru_cache(maxsize=None)
+def _params(arch: str, tp: int):
+    """The reference's weights (independent of the compute dtype) as numpy."""
+    cfg = dataclasses.replace(jax_smoke(arch), tp=tp)
+    return jax.tree.map(np.asarray, jax_init_lm(jax.random.PRNGKey(0), cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke(arch: str, cd: str = "float32", tp: int = 1):
+    """(jax cfg, port cfg, numpy params, port model) for a SMOKE config."""
+    jcfg = dataclasses.replace(jax_smoke(arch), compute_dtype=cd, tp=tp)
+    tcfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=cd, tp=tp)
+    params = _params(arch, tp)
+    return jcfg, tcfg, params, lm_from_numpy(tcfg, params, device="cpu")
+
+
+def _layer(params, i=0):
+    """Layer ``i``'s parameter dict (period 0's position i) in the reference's form."""
+    return jax.tree.map(lambda a: a[0], params["periods"][f"pos{i}"])
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _rel(got, want) -> float:
+    g, w = _f32(got), _f32(want)
+    return float(np.abs(g - w).max() / max(1.0, float(np.abs(w).max())))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def _cache_close(got: torch.Tensor, want, tol):
+    """A cache tensor: bfloat16 storage within one rounding step (plus
+    ``tol``), float32 storage within ``tol``."""
+    g, w = _f32(got), _f32(want)
+    assert g.shape == w.shape
+    if got.dtype == torch.bfloat16:
+        assert np.all(np.abs(g - w) <= BF16_STEP * np.abs(w) + tol), float(np.abs(g - w).max())
+    else:
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
+
+
+def _compare_caches(port: list, ref: dict, cfg, check):
+    """Every layer's cache slot of the port against the reference's stacked
+    slots (``ref["pos{i}"][key]`` with a leading period axis)."""
+    n = len(cfg.period)
+    assert len(port) == cfg.n_layers
+    for layer, slot in enumerate(port):
+        p, i = divmod(layer, n)
+        for key, obj in slot.items():
+            robj = ref[f"pos{i}"][key]
+            for f in dataclasses.fields(obj):
+                check(getattr(obj, f.name), np.asarray(getattr(robj, f.name))[p])
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["config", "smoke"])
+@pytest.mark.parametrize("name", JAX_ARCH_NAMES)
+def test_config_copies_equal_the_reference(name, smoke):
+    ref = (jax_smoke if smoke else jax_get_config)(name)
+    got = (get_smoke_config if smoke else get_config)(name)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    for prop in ("n_periods", "padded_vocab", "ssm_heads" if got.has_ssm else "q_per_kv"):
+        assert getattr(got, prop) == getattr(ref, prop)
+    assert got.param_count() == ref.param_count()
+    assert ARCH_NAMES == JAX_ARCH_NAMES
+
+
+@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
+def test_unported_families_raise_naming_the_later_slice(name):
+    with pytest.raises(NotImplementedError, match=UNSUPPORTED[name]):
+        LM(get_smoke_config(name), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# per module
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 24)).astype(np.float32)
+    s = rng.normal(size=(24,)).astype(np.float32)
+    got = tl.rms_norm(torch.from_numpy(x).to(dtype), torch.from_numpy(s))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jl.rms_norm(jnp.asarray(x, jdt), {"scale": jnp.asarray(s)})
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        _close(got, want, 1e-6)
+    else:
+        _cache_close(got, want, 0.0)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_apply_rope(per_row):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 5, 3, 16)).astype(np.float32)
+    pos = np.arange(5)[None] + (np.array([[0], [7]]) if per_row else 0)
+    got = tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6)
+    _close(got, jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6), 1e-5)
+
+
+def test_attention_prefill_and_its_block_cache():
+    jcfg, tcfg, params, model = _smoke("qwen3-0.6b")
+    p = _layer(params)["mixer"]
+    x = np.random.default_rng(2).normal(size=(2, 13, jcfg.d_model)).astype(np.float32)
+    pos = np.arange(13)[None]
+    want, wcache = jl.attention(p, jnp.asarray(x), jcfg, positions=jnp.asarray(pos),
+                                cache=jl.KVCache.zeros(jcfg, 2, 40))
+    cache = tl.KVCache.zeros(tcfg, 2, 40)
+    got, gcache = tl.attention(model.layers[0].mixer, torch.from_numpy(x),
+                               positions=torch.from_numpy(pos), cache=cache)
+    assert gcache is cache
+    _close(got, want, 1e-4)
+    _cache_close(cache.k, wcache.k, 1e-4)
+    _cache_close(cache.v, wcache.v, 1e-4)
+    # without a cache, chunked over 4-position query and key chunks
+    want, _ = jl.attention(p, jnp.asarray(x), jcfg, chunk=4)
+    got, none = tl.attention(model.layers[0].mixer, torch.from_numpy(x), chunk=4)
+    assert none is None
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("position", [9, [9, 3]], ids=["scalar", "per-lane"])
+def test_decode_attention_blocks(position):
+    jcfg, tcfg, params, model = _smoke("qwen3-0.6b")
+    p = _layer(params, 0)["mixer"]
+    rng = np.random.default_rng(3)
+    shape = jl.KVCache.zeros(jcfg, 2, 32).k.shape
+    k0 = np.array(jnp.asarray(rng.normal(size=shape), jnp.bfloat16).astype(jnp.float32))
+    v0 = np.array(jnp.asarray(rng.normal(size=shape), jnp.bfloat16).astype(jnp.float32))
+    x = rng.normal(size=(2, 1, jcfg.d_model)).astype(np.float32)
+    jpos = jnp.asarray(position, jnp.int32)
+    want, wcache = jl.decode_attention_blocks(
+        p, jnp.asarray(x), jl.KVCache(jnp.asarray(k0, jnp.bfloat16), jnp.asarray(v0, jnp.bfloat16)),
+        jpos, jcfg)
+    cache = tl.KVCache(torch.from_numpy(k0).bfloat16(), torch.from_numpy(v0).bfloat16())
+    got, gcache = tl.decode_attention_blocks(model.layers[0].mixer, torch.from_numpy(x), cache,
+                                             torch.tensor(position))
+    assert gcache is cache
+    _close(got, want, 1e-4)
+    _cache_close(cache.k, wcache.k, 1e-4)
+    _cache_close(cache.v, wcache.v, 1e-4)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_mlp(cd):
+    jcfg, tcfg, params, model = _smoke("qwen3-0.6b", cd)
+    x = np.random.default_rng(4).normal(size=(2, 3, jcfg.d_model)).astype(np.float32)
+    got = tl.mlp(model.layers[1].ffn, torch.from_numpy(x))
+    want = jl.mlp(jax.tree.map(lambda a: a[1], params["periods"]["pos0"])["ffn"],
+                  jnp.asarray(x), jcfg)
+    if cd == "float32":
+        _close(got, want, 1e-4)
+    else:
+        assert _rel(got, want) < 0.06
+
+
+@pytest.mark.parametrize("S", [16, 12, 5], ids=["chunks", "padded", "short"])
+def test_mamba_train(S):
+    jcfg, tcfg, params, model = _smoke("mamba2-370m")
+    x = np.random.default_rng(5).normal(size=(2, S, jcfg.d_model)).astype(np.float32)
+    want = jm.mamba_train(_layer(params)["mixer"], jnp.asarray(x), jcfg)
+    got = tm.mamba_train(model.layers[0].mixer, torch.from_numpy(x))
+    _close(got, want, 1e-4)
+
+
+def test_mamba_decode():
+    jcfg, tcfg, params, model = _smoke("mamba2-370m")
+    rng = np.random.default_rng(6)
+    ref0 = jm.MambaCache.zeros(jcfg, 2)
+    fields = [np.array(jnp.asarray(rng.normal(size=f.shape), f.dtype).astype(jnp.float32))
+              for f in (ref0.conv_x, ref0.conv_B, ref0.conv_C)]
+    state = rng.normal(size=ref0.state.shape).astype(np.float32)
+    x = rng.normal(size=(2, 1, jcfg.d_model)).astype(np.float32)
+    want, wcache = jm.mamba_decode(
+        _layer(params)["mixer"], jnp.asarray(x),
+        jm.MambaCache(*(jnp.asarray(f, jnp.bfloat16) for f in fields), jnp.asarray(state)), jcfg)
+    cache = tm.MambaCache(*(torch.from_numpy(f).bfloat16() for f in fields),
+                          torch.from_numpy(state))
+    got, gcache = tm.mamba_decode(model.layers[0].mixer, torch.from_numpy(x), cache)
+    assert gcache is cache
+    _close(got, want, 1e-4)
+    for f in dataclasses.fields(cache):
+        _cache_close(getattr(cache, f.name), getattr(wcache, f.name), 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the slice: forward, prefill, three decode steps
+# ---------------------------------------------------------------------------
+
+SLICE = [("qwen3-0.6b", "float32", 1), ("qwen3-0.6b", "bfloat16", 1),
+         ("mamba2-370m", "float32", 1), ("mamba2-370m", "bfloat16", 1),
+         ("qwen3-0.6b", "float32", 4), ("qwen3-0.6b", "float32", 8)]
+
+
+@pytest.mark.parametrize("arch,cd,tp", SLICE, ids=[f"{a}-{c}-tp{t}" for a, c, t in SLICE])
+def test_forward_prefill_and_decode_match_the_reference(arch, cd, tp):
+    jcfg, tcfg, params, model = _smoke(arch, cd, tp)
+    B, S, max_seq = 2, 12, 32
+    toks = np.random.default_rng(7).integers(0, jcfg.vocab, size=(B, S)).astype(np.int32)
+    f32 = cd == "float32"
+
+    def check_logits(got, want):
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        if f32:
+            _close(got, want, 1e-4)
+        else:
+            assert _rel(got, want) < 0.06, _rel(got, want)
+
+    def check_cache(got, want):
+        if f32:
+            _cache_close(got, want, 1e-4)
+        else:
+            assert _rel(got, want) < 0.06, _rel(got, want)
+
+    want, _ = jax_lm_forward(params, jnp.asarray(toks), jcfg, remat=False)
+    got, aux = lm_forward(model, torch.from_numpy(toks))
+    assert got.shape == (B, S, tcfg.padded_vocab) and float(aux) == 0.0
+    check_logits(got, want)
+
+    want, wcaches = jax_lm_prefill(params, jnp.asarray(toks), jcfg, max_seq=max_seq)
+    got, caches = lm_prefill(model, torch.from_numpy(toks), max_seq=max_seq)
+    check_logits(got, want)
+    _compare_caches(caches, wcaches, tcfg, check_cache)
+    decode = jax.jit(lambda p, c, t, pos: jax_lm_decode(p, c, t, pos, jcfg))
+    for step in range(3):
+        nxt = np.argmax(_f32(want)[:, :jcfg.vocab], -1).astype(np.int32)
+        want, wcaches = decode(params, wcaches, jnp.asarray(nxt), jnp.int32(S + step))
+        got, same = lm_decode(model, caches, torch.from_numpy(nxt), S + step)
+        assert same is caches  # updated in place
+        check_logits(got, want)
+    _compare_caches(caches, wcaches, tcfg, check_cache)
+
+
+def test_stored_kv_heads_and_padding_follow_tp():
+    """tp=4 replicates qwen3-smoke's 2 kv heads to 4; tp=8 also pads its 4
+    query heads to 8 (zero weights) and the vocab from 512 to 1024."""
+    for tp, hkv, hq, vp in ((4, 4, 4, 512), (8, 8, 8, 1024)):
+        model = _smoke("qwen3-0.6b", "float32", tp)[3]
+        mix = model.layers[0].mixer
+        assert mix.wk.shape[1] == hkv and mix.wq.shape[1] == hq
+        assert model.embed.head.shape[1] == vp
+        assert torch.equal(mix.wk[:, 0::2], mix.wk[:, 1::2])  # replicated real heads
+        assert not mix.wq[:, 4:].any() and not mix.wo[4:].any()
+
+
+# ---------------------------------------------------------------------------
+# init, load, capacity
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-370m"])
+def test_init_lm_draws_the_reference_shapes_and_scales(arch):
+    cfg = get_smoke_config(arch)
+    a = init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    b = init_lm(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    ref = jax.eval_shape(lambda k: jax_init_lm(k, jax_smoke(arch)), jax.random.PRNGKey(0))
+    n_ref = sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(ref))
+    assert sum(p.numel() for p in a.parameters()) == n_ref
+    for (name, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(p, q), name  # a seed fixes every value
+        assert p.device.type == "cpu" and not p.requires_grad
+    std = float(a.embed.head.float().std())
+    assert abs(std - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
+    assert a.embed.table.dtype == torch.bfloat16 and a.final_norm.dtype == torch.float32
+
+
+def test_lm_from_numpy_rejects_a_pytree_that_does_not_fit():
+    jcfg, tcfg, params, _ = _smoke("qwen3-0.6b")
+    short = dict(params, final_norm={})
+    with pytest.raises(ValueError, match="final_norm"):
+        lm_from_numpy(tcfg, short, device="cpu")
+    extra = dict(params, stray={"w": np.zeros(3)})
+    with pytest.raises(ValueError, match="stray.w"):
+        lm_from_numpy(tcfg, extra, device="cpu")
+    bad = jax.tree.map(lambda a: a, params)
+    bad["embed"] = dict(bad["embed"], head=bad["embed"]["head"][:, :7])
+    with pytest.raises(ValueError, match="embed.head: shape"):
+        lm_from_numpy(tcfg, bad, device="cpu")
+
+
+def test_decode_past_the_cache_raises():
+    _, tcfg, _, model = _smoke("qwen3-0.6b")
+    caches = init_caches(tcfg, 2, 16, device="cpu")
+    with pytest.raises(IndexError, match="outside the caches' 16 slots"):
+        lm_decode(model, caches, torch.tensor([1, 2]), 16)
+    with pytest.raises(IndexError, match="outside"):
+        lm_decode(model, caches, torch.tensor([1, 2]), np.array([3, 16]))
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    cfg = get_smoke_config("qwen3-0.6b")
+    for call in (lambda: init_lm(cfg), lambda: init_caches(cfg, 1, 8), lambda: LM(cfg)):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            call()

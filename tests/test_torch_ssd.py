@@ -1,0 +1,234 @@
+"""The port's chunked Mamba2 SSD scan (repro_torch.kernels.ssd) on CPU
+tensors, where the ``ssd_scan`` wrapper runs the kernel's plain PyTorch
+version (``ssd_chunked_ref``).
+
+The CUDA kernel itself is held against this plain version on the card by
+``chip_smoke.py``.  Here, on inputs drawn with ``numpy.random.default_rng``
+and handed to both packages:
+
+* the plain path against the reference's Pallas kernel (``interpret=True``)
+  and its sequential oracle ``ssd_scan_ref`` on ``tests/test_kernels.py``'s
+  cases: y within 1e-4 (float32) and 5e-2 (bfloat16), the final state
+  within 1e-4 — the reference's own tolerances;
+* the port's sequential oracle against the reference's; chunk invariance
+  (8 against 64); ``ssd_decode_step`` against the reference's and along the
+  scan's trajectory;
+* the kernel's loop (serial cumsum, the causal half of the decay matrix
+  only, state update after y), transliterated to numpy from
+  ``csrc/ssd_scan.cu``, against the plain version — also where the masked
+  half of exp(l_t - l_s) overflows;
+* ``T % chunk != 0`` and the other rejections, the launch counter and the C
+  entry point's arity.
+"""
+import ast
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax  # noqa: F401  (both frameworks in one process)
+import jax.numpy as jnp
+
+from repro.kernels.ssd import ssd_decode_step as jax_decode_step
+from repro.kernels.ssd import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd import ssd_scan_ref as jax_ssd_scan_ref
+from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_decode_step, ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd import ssd as ssd_mod
+
+SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
+
+CASES = [  # tests/test_kernels.py's cases: B, T, H, P, N, chunk
+    (2, 64, 4, 16, 8, 16),
+    (1, 128, 2, 32, 16, 32),
+    (2, 96, 8, 8, 4, 32),
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
+
+
+@pytest.fixture(autouse=True)
+def flush_denormal():
+    torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)  # torch's default
+
+
+def _inputs(seed, B, T, H, P, N, decay=0.5, scale_bc=True):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, T, H, P)).astype(np.float32)
+    loga = (-np.abs(rng.normal(size=(B, T, H))) * decay).astype(np.float32)
+    div = np.sqrt(N) if scale_bc else 1.0
+    Bm = (rng.normal(size=(B, T, N)) / div).astype(np.float32)
+    C = (rng.normal(size=(B, T, N)) / div).astype(np.float32)
+    return x, loga, Bm, C
+
+
+def _torch(x, loga, Bm, C, dtype=torch.float32):
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(loga),
+            torch.from_numpy(Bm).to(dtype), torch.from_numpy(C).to(dtype))
+
+
+def _close(got: torch.Tensor, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,H,P,N,chunk", CASES)
+def test_plain_version_matches_reference_kernel_and_oracle(B, T, H, P, N, chunk, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    x, loga, Bm, C = _inputs(5, B, T, H, P, N)
+    y, s = ssd_scan(*_torch(x, loga, Bm, C, tdt), chunk=chunk)
+    assert y.dtype == tdt and y.shape == (B, T, H, P)
+    assert s.dtype == torch.float32 and s.shape == (B, H, P, N)
+    jx, jB, jC = (jnp.asarray(a, jdt) for a in (x, Bm, C))
+    jy, js = jax_ssd_scan(jx, jnp.asarray(loga), jB, jC, chunk=chunk)
+    ry, rs = jax_ssd_scan_ref(jx, jnp.asarray(loga), jB, jC)
+    _close(y, jy, tol)
+    _close(y, ry, tol)
+    _close(s, js, 1e-4)
+    _close(s, rs, 1e-4)
+
+
+def test_sequential_oracle_matches_the_reference_oracle():
+    x, loga, Bm, C = _inputs(6, 2, 24, 3, 8, 4)
+    init = np.random.default_rng(1).normal(size=(2, 3, 8, 4)).astype(np.float32)
+    y, s = ssd_scan_ref(*_torch(x, loga, Bm, C), init_state=torch.from_numpy(init))
+    jy, js = jax_ssd_scan_ref(*(jnp.asarray(a) for a in (x, loga, Bm, C)),
+                              init_state=jnp.asarray(init))
+    _close(y, jy, 1e-5)
+    _close(s, js, 1e-5)
+
+
+def test_chunk_invariance():
+    """The facet decomposition is invariant to the chunk size."""
+    x, loga, Bm, C = _inputs(9, 1, 64, 2, 8, 4, decay=0.3, scale_bc=False)
+    y8, s8 = ssd_scan(*_torch(x, loga, Bm, C), chunk=8)
+    y64, s64 = ssd_scan(*_torch(x, loga, Bm, C), chunk=64)
+    torch.testing.assert_close(y8, y64, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(s8, s64, rtol=2e-5, atol=2e-5)
+
+
+def test_decode_step_matches_reference_and_follows_the_scan():
+    x, loga, Bm, C = _inputs(13, 2, 16, 2, 8, 4, decay=0.3, scale_bc=False)
+    tx, tl, tB, tC = _torch(x, loga, Bm, C)
+    y_ref, s_ref = ssd_scan_ref(tx, tl, tB, tC)
+    S = torch.zeros((2, 2, 8, 4))
+    jS = jnp.zeros((2, 2, 8, 4), jnp.float32)
+    for t in range(16):
+        y_t, S = ssd_decode_step(S, tx[:, t], tl[:, t], tB[:, t], tC[:, t])
+        jy_t, jS = jax_decode_step(jS, *(jnp.asarray(a[:, t]) for a in (x, loga, Bm, C)))
+        _close(y_t, jy_t, 1e-6)
+        _close(S, jS, 1e-6)
+        torch.testing.assert_close(y_t, y_ref[:, t], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(S, s_ref, rtol=1e-5, atol=1e-5)
+
+
+def test_decode_step_keeps_the_token_dtype():
+    x, loga, Bm, C = _inputs(2, 1, 1, 2, 4, 4)
+    y, S = ssd_decode_step(torch.zeros((1, 2, 4, 4)), *_torch(x[:, 0], loga[:, 0], Bm[:, 0],
+                                                              C[:, 0], torch.bfloat16))
+    assert y.dtype == torch.bfloat16 and S.dtype == torch.float32
+
+
+def _kernel_loop(x, loga, Bm, C, L):
+    """numpy transliteration of csrc/ssd_scan.cu for one launch: per (row,
+    head), chunks in order; serial cumsum; W only for s <= t; y from the
+    state before the chunk; then the state update."""
+    Bb, T, H, P = x.shape
+    N = Bm.shape[-1]
+    y = np.zeros((Bb, T, H, P), np.float32)
+    state = np.zeros((Bb, H, P, N), np.float32)
+    with np.errstate(over="raise", invalid="raise"):
+        for b in range(Bb):
+            for h in range(H):
+                S = np.zeros((P, N), np.float32)
+                for c0 in range(0, T, L):
+                    xs = x[b, c0:c0 + L, h].astype(np.float32)  # (L, P)
+                    Bc = Bm[b, c0:c0 + L].astype(np.float32)
+                    Cc = C[b, c0:c0 + L].astype(np.float32)
+                    lcum = np.cumsum(loga[b, c0:c0 + L, h].astype(np.float32))
+                    W = np.zeros((L, L), np.float32)
+                    for t in range(L):
+                        s = np.arange(t + 1)
+                        W[t, :t + 1] = np.exp(lcum[t] - lcum[s]) * (Bc[s] @ Cc[t])
+                    y[b, c0:c0 + L, h] = W @ xs + np.exp(lcum)[:, None] * (Cc @ S.T)
+                    wout = np.exp(lcum[-1] - lcum)
+                    S = np.exp(lcum[-1]) * S + (xs * wout[:, None]).T @ Bc
+                state[b, h] = S
+    return y, state
+
+
+@pytest.mark.parametrize("B,T,H,P,N,L,decay", [
+    (2, 64, 4, 16, 8, 16, 0.5),
+    (1, 24, 2, 8, 4, 8, 0.5),     # the smoke configs' chunk
+    (1, 256, 2, 4, 8, 128, 3.0),  # exp(l_t - l_s) overflows in the masked half
+])
+def test_the_kernels_loop_matches_the_plain_version(B, T, H, P, N, L, decay):
+    x, loga, Bm, C = _inputs(17, B, T, H, P, N, decay=decay)
+    y, s = ssd_scan(*_torch(x, loga, Bm, C), chunk=L)
+    ky, ks = _kernel_loop(x, loga, Bm, C, L)
+    assert np.isfinite(ky).all() and torch.isfinite(y).all()
+    np.testing.assert_allclose(ky, y.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ks, s.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_plain_version_is_the_wrapper_on_cpu_and_does_not_count():
+    args = _torch(*_inputs(1, 1, 32, 2, 4, 4))
+    before = [a.clone() for a in args]
+    ssd_scan.launches = 0
+    y, s = ssd_scan(*args, chunk=8)
+    assert ssd_scan.launches == 0
+    wy, ws = ssd_chunked_ref(*args, 8)
+    assert torch.equal(y, wy) and torch.equal(s, ws)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))  # read only
+
+
+def test_rejects_what_the_kernel_does_not_take():
+    x, loga, Bm, C = _torch(*_inputs(1, 1, 24, 2, 4, 4))
+    with pytest.raises(ValueError, match="T=24 must divide by chunk=16"):
+        ssd_scan(x, loga, Bm, C, chunk=16)
+    with pytest.raises(ValueError, match="must divide by chunk"):
+        ssd_chunked_ref(x, loga, Bm, C, 16)
+    with pytest.raises(ValueError, match="do not match"):
+        ssd_scan(x, loga[:, :, :1], Bm, C, chunk=8)
+    with pytest.raises(ValueError, match="want x"):
+        ssd_scan(x, loga, Bm, C[..., :2], chunk=8)
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        ssd_scan(*(a.to("meta") for a in (x, loga, Bm, C)), chunk=8)
+
+
+def test_c_entry_point_matches_the_ctypes_binding():
+    """The wrapper's argtypes and the .cu entry point agree in arity."""
+    src = (SRC / "ssd" / "csrc" / "ssd_scan.cu").read_text()
+    sig = re.search(r'extern "C" int ssd_scan\((.*?)\)\s*\{', src, re.S).group(1)
+    n_params = len([p for p in sig.split(",") if p.strip()])
+    tree = ast.parse((SRC / "ssd" / "ssd.py").read_text())
+    argtypes = next(node.value for node in ast.walk(tree)
+                    if isinstance(node, ast.Assign)
+                    and any(getattr(t, "attr", None) == "argtypes" for t in node.targets))
+    assert len(argtypes.elts) == n_params == 14
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
+    """On a card the wrapper launches the kernel (and counts it); the plain
+    version is never its way out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    B, T, H, P, N, chunk = CASES[0]
+    args = [a.cuda() for a in _torch(*_inputs(5, B, T, H, P, N))]
+    wy, ws = ssd_chunked_ref(*args, chunk)
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ssd_mod, "ssd_chunked_ref", plain)
+    before = ssd_scan.launches
+    y, s = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, ws, rtol=1e-4, atol=1e-4)
