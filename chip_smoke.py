@@ -34,7 +34,7 @@ result line unless every phase passed):
                (``cuda``), run once on seeded float32 inputs; kernel launches
                must equal the waves, facets must equal the card's
                ``reference`` backend;
-8.  irredundant — slice 2's path at the same size: ``cfa.autotune(...,
+8.  irredundant — slice 2's path at (64, 1024, 1024): ``cfa.autotune(...,
                storage="irredundant")`` -> ``best_cfa(kernel_compatible=True)``
                -> ``cfa.compile(..., storage="irredundant")`` (auto backend
                ``cuda``) -> run -> ``fetch_interior_halos(...,
@@ -48,10 +48,37 @@ result line unless every phase passed):
                1024), autotuned, through its auto backend (``wavefront``):
                equal to ``sweep`` on the card bit for bit, finite, and its
                quantisation against the redundant reference reported;
+    kernels-sharded — ``execute_tiles_sharded`` (TPU kernel 1s: one
+               ``stencil_tiles`` launch per port, each on its port's CUDA
+               stream) against its plain version (``execute_tiles_ref`` per
+               shard) and one launch over the whole batch, bit for bit: the
+               kernel-check shapes at 2, 3 and 4 ports (padded), and
+               ``[main]``'s full-size wave at 4 ports;
+    sharded  — slice 4's multi-port path: ``cfa.compile(..., n_ports=4)``
+               with ``[main]``'s layout (auto backend ``sharded``), run once
+               with ``use_kernel=True``; every wave padded to 4 shards
+               launches the kernel once per port (waves x 4 launches), and
+               the facets equal ``[main]``'s bit for bit;
+    dataflow — slice 4's overlapped path: ``cfa.compile(..., overlap=True)``
+               (auto backend ``dataflow``), run once with ``use_kernel=True``
+               (one launch per tile); facets equal ``[main]``'s; its wall
+               beside ``[main]``'s is the overlap factor; a profiled run at
+               a cut space counts the host's synchronising calls, the
+               device overlap of the compute stream, and checks that the
+               spans show prefetch and commit inside compute;
+    fetch-sharded — ``fetch_interior_halos_sharded`` (TPU kernel 2s) over
+               ``[irredundant]``'s payload placed on 4 ports: bit-equal to
+               the plain version and to ``[irredundant]``'s fetch;
+    distribute — ``compile(host_budget=2000)`` at (8, 8, 8) lowers to 2
+               ports / ``sharded``; facets equal the ``reference`` backend;
+    halo-quantize — ``compile(..., n_ports=2, halo_quantize=True)`` on the
+               card equals the same call on the CPU bit for bit;
 10. timing   — each kernel timed with CUDA events at its path's shapes
                (median of 5 windows after warm-up launches), beside its plain
                version, its bound and, for the fetch, one ``torch.take``
-               over a precomputed index as a bandwidth yardstick;
+               over a precomputed index as a bandwidth yardstick; 1s over 4
+               port streams against one launch over the same wave (in
+               turns), 2s against kernel 2;
 11. attn-kernel — ``decode_attention`` against its plain version on
                ``tests/test_kernels.py``'s shapes, the partial final block
                and qwen3-0.6b's decode shape (B 8, Hq 16, Hkv 8, D 128,
@@ -90,7 +117,9 @@ result line unless every phase passed):
                the deblockified cache with the same mask as a yardstick;
 15. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
-``--steps`` cuts the time axis of the full-width stencil paths (7-9); by
+Phases 7-9 run in the order main, kernels-sharded, sharded, dataflow,
+irredundant, fetch-sharded, compressed, distribute, halo-quantize.
+``--steps`` cuts the time axis of the full-width stencil paths; by
 default each runs at its full size.  Imports nothing of the JAX package;
 the port is imported from ``src/`` beside this file.
 """
@@ -122,6 +151,10 @@ MAIN_SPACE = (256, 1024, 1024)
 #: the compressed path's space: the full grid, the time axis cut (it runs no
 #: hand-written kernel and only holds the codec on the card)
 COMPRESSED_SPACE = (32, 1024, 1024)
+#: the irredundant path's space: the full grid, the time axis cut from 256 so
+#: that the whole script stays within half its time limit on a slow host (its
+#: host-bound copy_in took about a fifth of the run at 256 steps)
+IRREDUNDANT_SPACE = (64, 1024, 1024)
 SMALL_CASES = [  # tests/test_passes.py's CASES, 3-D rows
     ("jacobi2d5p", (8, 8, 8), (4, 4, 4)),
     ("jacobi2d9p", (8, 8, 8), (4, 4, 4)),
@@ -410,7 +443,9 @@ def phase_main(device, space=MAIN_SPACE) -> dict:
     if any(v != 0.0 for v in diffs.values()):
         raise AssertionError(f"cuda backend differs from reference: {diffs}")
     return {"launches": launches, "tile": compiled.pipeline.tiling.sizes,
-            "widths": compiled.program.widths, "largest_wave": max(len(w) for w in waves)}
+            "widths": compiled.program.widths, "largest_wave": max(len(w) for w in waves),
+            "facets": facets, "wall": wall, "layout": compiled.layout, "space": space,
+            "waves": len(waves)}
 
 
 def phase_irredundant(device, space=MAIN_SPACE) -> dict:
@@ -599,6 +634,20 @@ def _time_ms(fn, iters: int, warmup: int = 10, repeats: int = 5) -> tuple[float,
     return statistics.median(per_call), min(per_call), max(per_call)
 
 
+def _host_ms(fn, iters: int) -> float:
+    """Host milliseconds to enqueue one call of ``fn`` (``iters`` calls after a
+    synchronize, none waited on): beside a CUDA-event time it tells a
+    host-bound call from a device-bound one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def _stencil_bound(name: str, halos: torch.Tensor, tile) -> tuple[float, str]:
     """Least time for the call: each input byte read once and each output
     byte written once at peak bandwidth, against its flops at peak rate."""
@@ -699,6 +748,367 @@ def phase_fetch_timing(run: dict) -> dict:
         f"{esize} B each, at 3.35 TB/s), {bound_ms / ms:.1%} of bound")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": "bytes"}
+
+
+# -- slice 4: the multi-port (sharded) and overlapped (dataflow) paths -------------
+
+
+def _pad(halos: torch.Tensor, n: int) -> torch.Tensor:
+    """The batch padded to a multiple of ``n`` by repeating it, as the
+    sharded sweep pads a wave."""
+    target = -(-halos.shape[0] // n) * n
+    return torch.cat([halos] * -(-target // halos.shape[0]))[:target]
+
+
+def _sharded_plain(name: str, halos: torch.Tensor, tile, n: int) -> torch.Tensor:
+    """1s's plain version: ``execute_tiles_ref`` per port shard, in order."""
+    from repro_torch.kernels.stencil import execute_tiles_ref
+
+    m = halos.shape[0] // n
+    return torch.cat([execute_tiles_ref(name, halos[p * m:(p + 1) * m], tile)
+                      for p in range(n)])
+
+
+def phase_kernels_sharded(device, main: dict) -> float:
+    """``execute_tiles_sharded`` (one launch per port, each on its port's
+    stream) against its plain version and one ``execute_tiles`` launch over
+    the whole batch: the kernel-check shapes at 2, 3 and 4 ports (batches
+    padded), and the main path's full-size wave at 4 ports; difference 0."""
+    from repro_torch.core.cfa.programs import get_program
+    from repro_torch.distributed.sharding import port_mesh
+    from repro_torch.kernels.stencil import execute_tiles, execute_tiles_sharded
+
+    rng = np.random.default_rng(SEED)
+    cases = [(name, tile, batch, n) for name, tile, batch in KERNEL_CASES for n in (2, 3, 4)]
+    cases.append((MAIN_PROGRAM, main["tile"], main["largest_wave"], 4))
+    worst = 0.0
+    for name, tile, batch, n in cases:
+        w = get_program(name).widths
+        mesh = port_mesh(n, device)
+        for dtype in (torch.float32, torch.float64):
+            shape = (batch, *(wa + ta for wa, ta in zip(w, tile)))
+            halos = _pad(rng_tensor(rng, shape, dtype, device), n)
+            got = execute_tiles_sharded(name, halos, tile, mesh)
+            want = _sharded_plain(name, halos, tile, n)
+            one = execute_tiles(name, halos, tile)
+            torch.cuda.synchronize()
+            err, err_one = max_abs(got, want), max_abs(got, one)
+            log(f"[kernels-sharded] execute_tiles_sharded {name} tile={tile} B={halos.shape[0]} "
+                f"({batch} padded) over {n} ports {str(dtype)[6:]}: max|kernel-plain| = "
+                f"{err!r}, max|sharded-one launch| = {err_one!r}")
+            if not (bit_equal(got, want) and bit_equal(got, one)
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"execute_tiles_sharded {name} {dtype} {n} ports: differs")
+            worst = max(worst, err, err_one)
+    return worst
+
+
+def phase_sharded(device, main: dict) -> dict:
+    """The multi-port path, once, through the front door at full size:
+    ``compile(..., n_ports=4)`` with ``[main]``'s layout, the auto backend
+    (``sharded``), run with ``use_kernel=True``; its facets must equal
+    ``[main]``'s bit for bit, and every wave (padded to 4 shards) must
+    launch the tile kernel once per port."""
+    from repro_torch import cfa
+    from repro_torch.kernels.stencil import execute_tiles, execute_tiles_sharded
+
+    n_ports, space = 4, main["space"]
+    t0 = time.perf_counter()
+    compiled = cfa.compile(MAIN_PROGRAM, space, n_ports=n_ports, layout=main["layout"],
+                           device=device)
+    t_compile = time.perf_counter() - t0
+    pipe = compiled.pipeline
+    waves = pipe.wavefronts()
+    log(f"[sharded] {compiled.describe()}")
+    log(f"[sharded] compile {t_compile:.2f} s; layout {compiled.layout.key}, backend "
+        f"{compiled.backend}, facet->port {pipe.port_assignment.facet_to_port}, "
+        f"{math.prod(pipe.num_tiles)} tiles in {len(waves)} waves")
+    if compiled.backend != "sharded":
+        raise AssertionError(f"auto backend is {compiled.backend!r}, not 'sharded'")
+    x = seeded_inputs(MAIN_PROGRAM, space, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    execute_tiles.launches = execute_tiles_sharded.launches = 0
+    t0 = time.perf_counter()
+    facets = compiled(x, dtype=torch.float32, use_kernel=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"stencil_tiles": execute_tiles.launches,
+                "execute_tiles_sharded": execute_tiles_sharded.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[sharded] sharded backend, {n_ports} ports (CUDA streams), use_kernel: {wall:.3f} s "
+        f"wall (host clock around synchronize), {math.prod(space) / wall:.4g} points/s; "
+        f"[main] cuda backend {main['wall']:.3f} s; {len(waves)} waves, launches {launches} "
+        f"= {launches['stencil_tiles'] / n_ports:g} per port; max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
+    want = len(waves) * n_ports
+    if launches["stencil_tiles"] != want or launches["execute_tiles_sharded"] != want:
+        raise AssertionError(f"launches {launches} for {len(waves)} waves x {n_ports} ports")
+    if not facets_equal(facets, main["facets"]):
+        raise AssertionError("sharded facets differ from [main]'s: " + str(
+            {k: max_abs(facets[k], main["facets"][k]) for k in facets}))
+    log("[sharded] facets == [main]'s (== the reference backend's), bit for bit")
+    return {"launches": launches["execute_tiles_sharded"], "wall": wall,
+            "waves": len(waves), "n_ports": n_ports}
+
+
+def phase_fetch_sharded(device, irr: dict) -> dict:
+    """The read engine over port-resident facets, once: ``[irredundant]``'s
+    payload placed on 4 ports by ``assign_ports``; bit-equal to the plain
+    version and to ``[irredundant]``'s fetch."""
+    from repro_torch.core.cfa import IterSpace, Tiling, assign_ports, get_program
+    from repro_torch.kernels.facet_fetch import (fetch_interior_halos_ref,
+                                                 fetch_interior_halos_sharded)
+
+    payload, space, tile = irr["payload"], irr["space"], irr["tile"]
+    pa = assign_ports(IterSpace(space), get_program(MAIN_PROGRAM).deps, Tiling(tile), 4)
+    torch.cuda.synchronize()
+    fetch_interior_halos_sharded.launches = 0
+    t0 = time.perf_counter()
+    got = fetch_interior_halos_sharded(MAIN_PROGRAM, payload, space, tile, pa,
+                                       storage="irredundant")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fetch_interior_halos_sharded.launches
+    plain = fetch_interior_halos_ref(MAIN_PROGRAM, payload, space, tile, storage="irredundant")
+    err = max_abs(got, plain)
+    ok = bit_equal(got, plain) and bit_equal(got, irr["halos"]) and bool(torch.isfinite(got).all())
+    del plain
+    log(f"[fetch-sharded] fetch_interior_halos_sharded {MAIN_PROGRAM} irredundant, facet->port "
+        f"{pa.facet_to_port} over 4 ports: {wall * 1e3:.3f} ms wall -> {tuple(got.shape)}, "
+        f"{launches} launch(es); max|kernel-plain| = {err!r}; == [irredundant]'s fetch: "
+        f"{bit_equal(got, irr['halos'])}")
+    if not ok or launches != 1:
+        raise AssertionError(f"fetch_interior_halos_sharded: differs ({err!r}) or "
+                             f"{launches} launches")
+    return {"launches": launches, "err": err, "assignment": pa}
+
+
+def phase_distribute(device) -> None:
+    """``compile(host_budget=2000)`` at (8, 8, 8), layout (4, 4, 4): the
+    distribute pass raises ``n_ports`` to 2 and lowers to ``sharded``;
+    facets (host path and kernel path) equal the card's ``reference``
+    backend bit for bit."""
+    from repro_torch import cfa
+
+    name, space, tile = MAIN_PROGRAM, (8, 8, 8), (4, 4, 4)
+    compiled = cfa.compile(name, space, layout=tile, host_budget=2000, device=device)
+    log(f"[distribute] {name} @ {space} layout {tile} host_budget 2000: n_ports "
+        f"{compiled.n_ports}, distributed {compiled.distributed}, backend {compiled.backend}")
+    if (compiled.n_ports, compiled.distributed, compiled.backend) != (2, True, "sharded"):
+        raise AssertionError("the distribute pass did not lower to 2 ports / sharded")
+    x = seeded_inputs(name, space, "cpu", torch.float64)
+    reference = cfa.compile(name, space, layout=tile, backend="reference", device=device)
+    for dtype in (torch.float32, torch.float64):
+        ref = reference(x, dtype=dtype)
+        for use_kernel in (False, True):
+            got = compiled(x, dtype=dtype, use_kernel=use_kernel)
+            torch.cuda.synchronize()
+            if not facets_equal(got, ref):
+                raise AssertionError(f"distribute {dtype} use_kernel={use_kernel}: differs from "
+                                     f"the reference backend")
+    log("[distribute] facets == reference backend on the card, bit for bit, float32 and "
+        "float64, host and kernel path")
+
+
+def phase_halo_quantize(device) -> None:
+    """``compile(..., n_ports=2, halo_quantize=True)`` on the card against
+    the same call on the CPU: the same facets bit for bit (the quantizer
+    divides by a 0-d tensor, as the CPU does; the tile kernel is bit-exact
+    against its plain version), and lossy against the exact sweep."""
+    from repro_torch import cfa
+
+    for name, space, tile in SMALL_CASES:
+        x = seeded_inputs(name, space, "cpu", torch.float64)
+        card = cfa.compile(name, space, layout=tile, n_ports=2, halo_quantize=True, device=device)
+        cpu = cfa.compile(name, space, layout=tile, n_ports=2, halo_quantize=True, device="cpu")
+        cpu_exact = cfa.compile(name, space, layout=tile, n_ports=2, device="cpu")
+        for dtype in (torch.float32, torch.float64):
+            want = cpu(x, dtype=dtype)
+            exact = cpu_exact(x, dtype=dtype)
+            lossy = max(max_abs(want[k], exact[k]) for k in want)
+            for use_kernel in (False, True):
+                got = card(x, dtype=dtype, use_kernel=use_kernel)
+                torch.cuda.synchronize()
+                err = max(max_abs(got[k].cpu(), want[k]) for k in want)
+                if not facets_equal({k: v.cpu() for k, v in got.items()}, want):
+                    raise AssertionError(f"halo_quantize {name} {dtype} use_kernel={use_kernel}: "
+                                         f"card and CPU differ by {err!r}")
+            log(f"[halo-quantize] {name} @ {space} tile {tile} {str(dtype)[6:]}, 2 ports: card "
+                f"== CPU bit for bit (host and kernel path); quantized vs exact sweep "
+                f"{lossy!r}")
+
+
+def _lane_overlap(trace: Path) -> str:
+    """From a Chrome trace of a dataflow run: the device time of the kernels
+    on the compute stream (the stencil launches) and how much of it overlaps
+    kernels on other streams (gathers and commits)."""
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    by_stream: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            s = e.get("args", {}).get("stream")
+            by_stream.setdefault(s, []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                                                e.get("name", "")))
+    stencil = [s for s, ks in by_stream.items() if any("stencil_tiles" in k[2] for k in ks)]
+    if len(stencil) != 1:
+        return f"not measured (stencil kernels on streams {stencil} of {sorted(map(str, by_stream))})"
+    comp = by_stream[stencil[0]]
+    others = sorted(iv for s, ks in by_stream.items() if s != stencil[0] for iv in ks)
+    busy = sum(b - a for a, b, _ in comp)
+    overlap = 0.0
+    for a, b, _ in comp:
+        for c, d, _ in others:
+            if c >= b:
+                break
+            overlap += max(0.0, min(b, d) - max(a, c))
+    return (f"{len(comp)} kernels on the compute stream, {busy:.1f} us; {overlap:.1f} us of it "
+            f"({overlap / busy:.1%}) overlaps {len(others)} kernels on {len(by_stream) - 1} other "
+            f"stream(s)")
+
+
+def _dataflow_profile(device, layout, space) -> None:
+    """A traced and profiled dataflow run at a cut space: host spans must
+    show prefetch and commit inside compute (the concurrent lanes), the
+    profiler counts the host's synchronising calls and the device overlap
+    of the compute stream with the gathers and commits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import cfa
+
+    compiled = cfa.compile(MAIN_PROGRAM, space, overlap=True, layout=layout, device=device)
+    x = seeded_inputs(MAIN_PROGRAM, space, device)
+    compiled(x, dtype=torch.float32, use_kernel=True)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        compiled(x, dtype=torch.float32, use_kernel=True, trace=True)
+        torch.cuda.synchronize()
+    n_tiles = math.prod(compiled.pipeline.num_tiles)
+    syncs = {e.key: e.count for e in prof.key_averages()
+             if "Synchronize" in e.key or e.key in ("cudaMemcpy", "cudaStreamWaitEvent")}
+    out = ROOT / "build" / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "dataflow.json"))
+    rec = compiled.last_trace()
+    compute, fetch, commit = (rec.find(n) for n in ("execute_tile", "copy_in", "copy_out"))
+
+    def inside(inner, outer):
+        return outer.t0 <= inner.t0 and inner.t0 + inner.dur <= outer.t0 + outer.dur
+
+    expected = sum(len(w) - 1 for w in compiled.pipeline.wavefronts())
+    f_in = sum(any(inside(f, c) for c in compute) for f in fetch)
+    c_in = sum(any(inside(w, c) for c in compute) for w in commit)
+    log(f"[dataflow] profiled at {space} ({n_tiles} tiles, {len(compute)} compute spans): "
+        f"host calls {syncs} (the last synchronize is the window's own); spans: {f_in} "
+        f"prefetches and {c_in} commits inside a compute span (structural floor {expected}); "
+        f"device: {_lane_overlap(out / 'dataflow.json')}")
+    if not (rec.reconcile(compiled.pipeline)["ok"] and f_in >= expected and c_in >= expected):
+        raise AssertionError("dataflow trace: lanes not concurrent or counters do not reconcile")
+
+
+def phase_dataflow(device, main: dict) -> dict:
+    """The overlapped path, once, through the front door at full size:
+    ``compile(..., overlap=True)`` with ``[main]``'s layout (auto backend
+    ``dataflow``), run with ``use_kernel=True`` — one tile-kernel launch per
+    tile; facets must equal ``[main]``'s bit for bit.  Its wall beside
+    ``[main]``'s is the overlap factor."""
+    from repro_torch import cfa
+    from repro_torch.kernels.stencil import execute_tiles
+
+    space = main["space"]
+    compiled = cfa.compile(MAIN_PROGRAM, space, overlap=True, layout=main["layout"],
+                           device=device)
+    n_tiles = math.prod(compiled.pipeline.num_tiles)
+    log(f"[dataflow] {compiled.describe()}")
+    if compiled.backend != "dataflow":
+        raise AssertionError(f"auto backend is {compiled.backend!r}, not 'dataflow'")
+    x = seeded_inputs(MAIN_PROGRAM, space, device)
+    torch.cuda.synchronize()
+    execute_tiles.launches = 0
+    t0 = time.perf_counter()
+    facets = compiled(x, dtype=torch.float32, use_kernel=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = execute_tiles.launches
+    log(f"[dataflow] dataflow backend, use_kernel: {wall:.3f} s wall (host clock around "
+        f"synchronize), {math.prod(space) / wall:.4g} points/s, {launches} stencil_tiles "
+        f"launches for {n_tiles} tiles; [main] cuda backend {main['wall']:.3f} s: overlap "
+        f"factor (main wall / dataflow wall) {main['wall'] / wall:.4f}")
+    if launches != n_tiles:
+        raise AssertionError(f"{launches} stencil_tiles launches for {n_tiles} tiles")
+    if not facets_equal(facets, main["facets"]):
+        raise AssertionError("dataflow facets differ from [main]'s: " + str(
+            {k: max_abs(facets[k], main["facets"][k]) for k in facets}))
+    log("[dataflow] facets == [main]'s (== the reference backend's), bit for bit")
+    del facets
+    _dataflow_profile(device, main["layout"], (min(8, space[0]), *space[1:]))
+    return {"launches": launches, "wall": wall}
+
+
+def phase_sharded_timing(device, main: dict, irr: dict, fetch_row: dict,
+                         assignment) -> dict:
+    """1s at the main path's full-size wave over 4 port streams against one
+    launch of kernel 1 over the whole wave; 2s against kernel 2, at the
+    irredundant path's shapes.  Bounds as for kernels 1 and 2; no PyTorch
+    call computes either function (library time null)."""
+    from repro_torch.distributed.sharding import port_mesh
+    from repro_torch.kernels.facet_fetch import (fetch_interior_halos, fetch_interior_halos_ref,
+                                                 fetch_interior_halos_sharded)
+    from repro_torch.kernels.stencil import execute_tiles, execute_tiles_sharded
+
+    rows = {}
+    n, tile, w = 4, main["tile"], main["widths"]
+    mesh = port_mesh(n, device)
+    shape = (main["largest_wave"], *(wa + ta for wa, ta in zip(w, tile)))
+    halos = _pad(rng_tensor(np.random.default_rng(SEED), shape, torch.float32, device), n)
+    err = max_abs(execute_tiles_sharded(MAIN_PROGRAM, halos, tile, mesh),
+                  _sharded_plain(MAIN_PROGRAM, halos, tile, n))
+    sharded_ms = []
+    one_ms = []
+    for _ in range(2):  # in turns: sharded, one launch, sharded, one launch
+        sharded_ms.append(_time_ms(lambda: execute_tiles_sharded(MAIN_PROGRAM, halos, tile,
+                                                                 mesh), 100))
+        one_ms.append(_time_ms(lambda: execute_tiles(MAIN_PROGRAM, halos, tile), 100))
+    ms, one = statistics.median(t[0] for t in sharded_ms), statistics.median(t[0] for t in one_ms)
+    host_ms = {label: _host_ms(fn, 100) for label, fn in (
+        ("sharded", lambda: execute_tiles_sharded(MAIN_PROGRAM, halos, tile, mesh)),
+        ("one launch", lambda: execute_tiles(MAIN_PROGRAM, halos, tile)))}
+    plain_ms, _, _ = _time_ms(lambda: _sharded_plain(MAIN_PROGRAM, halos, tile, n), 10, warmup=2)
+    bound_ms, bound_by = _stencil_bound(MAIN_PROGRAM, halos, tile)
+    log(f"[timing] execute_tiles_sharded {MAIN_PROGRAM} main-path wave: B={halos.shape[0]} halo "
+        f"{tuple(halos.shape[1:])} float32 over {n} port streams: {ms:.6f} ms (windows "
+        f"{[round(t[0], 6) for t in sharded_ms]}), one execute_tiles launch over the wave "
+        f"{one:.6f} ms (windows {[round(t[0], 6) for t in one_ms]}), plain (per shard) "
+        f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of bound, "
+        f"max|kernel-plain| {err!r}; host time to enqueue one call (no wait): " + ", ".join(
+            f"{k} {v:.6f} ms" for k, v in host_ms.items()))
+    if err != 0.0:
+        raise AssertionError(f"execute_tiles_sharded differs from plain at the wave: {err!r}")
+    rows["execute_tiles_sharded"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                     "bound_by": bound_by, "library_ms": None, "err": err,
+                                     "one_launch_ms": one}
+
+    payload, space, ftile = irr["payload"], irr["space"], irr["tile"]
+
+    def sharded():
+        return fetch_interior_halos_sharded(MAIN_PROGRAM, payload, space, ftile, assignment,
+                                            mesh, storage="irredundant")
+
+    def kernel2():
+        return fetch_interior_halos(MAIN_PROGRAM, payload, space, ftile, storage="irredundant")
+
+    f_ms, f_lo, f_hi = _time_ms(sharded, 20, warmup=3)
+    k_ms, _, _ = _time_ms(kernel2, 20, warmup=3)
+    f_plain, _, _ = _time_ms(lambda: fetch_interior_halos_ref(
+        MAIN_PROGRAM, payload, space, ftile, storage="irredundant"), 3, warmup=1)
+    log(f"[timing] fetch_interior_halos_sharded {MAIN_PROGRAM} irredundant over 4 ports: "
+        f"{f_ms:.6f} ms (min {f_lo:.6f}, max {f_hi:.6f}), fetch_interior_halos {k_ms:.6f} ms "
+        f"(phase [timing]: {fetch_row['ms']:.6f} ms), plain {f_plain:.6f} ms, bound "
+        f"{fetch_row['bound_ms']:.6f} ms (bytes), {fetch_row['bound_ms'] / f_ms:.1%} of bound")
+    rows["fetch_interior_halos_sharded"] = {
+        "ms": f_ms, "plain_ms": f_plain, "bound_ms": fetch_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}
+    return rows
 
 
 # -- slice 3: LM serving ------------------------------------------------------
@@ -1148,17 +1558,19 @@ def phase_serve_timing(device, runs: dict) -> dict:
 
 def log_clocks() -> None:
     clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        ["nvidia-smi", "--query-gpu=name,clocks.sm,clocks.max.sm,power.draw,power.limit,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    log(f"[timing] after timing: sm clock, max sm clock, power, temperature: {clocks}")
+    log(f"[timing] after timing: name, sm clock, max sm clock, power, power limit, "
+        f"temperature: {clocks}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=None,
                     help="time steps of the full-width paths (default: each path's "
-                         f"full size, {MAIN_SPACE[0]} and {COMPRESSED_SPACE[0]})")
+                         f"size, {MAIN_SPACE[0]}, {IRREDUNDANT_SPACE[0]} and "
+                         f"{COMPRESSED_SPACE[0]})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1183,10 +1595,19 @@ def main() -> int:
     phase_small(device)
     phase_storage(device)
     main_run = phase_main(device, cut(MAIN_SPACE))
-    irr_run = phase_irredundant(device, cut(MAIN_SPACE))
+    worst_sharded = phase_kernels_sharded(device, main_run)
+    sharded_run = phase_sharded(device, main_run)
+    dataflow_run = phase_dataflow(device, main_run)
+    del main_run["facets"]
+    irr_run = phase_irredundant(device, cut(IRREDUNDANT_SPACE))
+    fetch_sharded_run = phase_fetch_sharded(device, irr_run)
     phase_compressed(device, cut(COMPRESSED_SPACE))
+    phase_distribute(device)
+    phase_halo_quantize(device)
     rows = phase_timing(device, main_run, irr_run)
     fetch_row = phase_fetch_timing(irr_run)
+    sharded_rows = phase_sharded_timing(device, main_run, irr_run, fetch_row,
+                                        fetch_sharded_run["assignment"])
     worst_attn = phase_attn_kernel(device)
     worst_ssd = phase_ssd_kernel(device)
     runs = {arch: phase_serve(device, arch) for arch in SERVE_ARCHS}
@@ -1226,6 +1647,26 @@ def main() -> int:
             "max_abs_err": max(worst_k, row["err"]),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # the per-port wrappers launch the kernels of rows 1 and 2 (no source of their own)
+    for name, source, replaces, launches, worst_k in (
+            ("execute_tiles_sharded", "src/repro_torch/kernels/stencil/csrc/stencil_tiles.cu",
+             "src/repro/kernels/stencil/ops.py:35", sharded_run["launches"],
+             max(worst_sharded, sharded_rows["execute_tiles_sharded"]["err"])),
+            ("fetch_interior_halos_sharded",
+             "src/repro_torch/kernels/facet_fetch/csrc/facet_fetch.cu",
+             "src/repro/kernels/facet_fetch/ops.py:11", fetch_sharded_run["launches"],
+             fetch_sharded_run["err"])):
+        row = sharded_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": worst_k,
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
+    log(f"[done] launches per path: stencil_tiles [main] {main_run['launches']}, [sharded] "
+        f"{sharded_run['launches']} ({sharded_run['waves']} waves x {sharded_run['n_ports']} "
+        f"ports), [dataflow] {dataflow_run['launches']}, [irredundant] "
+        f"{irr_run['launches']['stencil_tiles']}; facet_fetch [irredundant] "
+        f"{irr_run['launches']['facet_fetch']}, [fetch-sharded] {fetch_sharded_run['launches']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

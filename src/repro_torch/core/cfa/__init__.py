@@ -27,7 +27,7 @@ runs; ``repro_torch.cfa`` is the curated front door):
 * ``BurstModel`` / ``PortedPlan`` / ``BandwidthReport`` / ``AXI_ZC706`` /
   ``overlap_speedup`` — the bandwidth model.
 * ``assign_ports`` / ``repartition`` / ``best_repartition`` — the §VII
-  repartition arithmetic (no multi-port backend yet).
+  repartition arithmetic, executed by the ``sharded`` backend.
 * ``StencilProgram`` / ``PROGRAMS`` / ``get_program`` — the Table I suite.
 * ``CFAPipeline`` — the read->execute->write tile pipeline of §V.
 * ``autotune`` / ``LayoutCandidate`` / ``ScoredLayout`` /
@@ -37,7 +37,8 @@ runs; ``repro_torch.cfa`` is the curated front door):
 * ``CompileState`` / ``PassPipeline`` / ``default_pipeline`` — the staged
   lowering; ``compile`` / ``CompiledStencil`` / ``Target`` — the front end;
   ``EXECUTORS`` / ``select_backend`` / ``BackendError`` — the backend
-  registry (``reference``, ``sweep``, ``wavefront``, ``cuda``).
+  registry (``reference``, ``sweep``, ``wavefront``, ``cuda``,
+  ``sharded``, ``dataflow``).
 """
 from .spaces import (
     IterSpace,

@@ -24,10 +24,12 @@ wrapper runs its plain PyTorch version.
 
 The :class:`Target` registry holds the paper's ZC706 AXI port model, the
 default.  The three facet storage disciplines (``storage="redundant"``,
-``"irredundant"``, ``"compressed"`` with a ``codec``) all run.  Multi-port
-execution, the overlapped ``dataflow`` backend, halo quantization and the
-static verifier arrive with later slices of the port; ``compile`` rejects
-them loudly.
+``"irredundant"``, ``"compressed"`` with a ``codec``) all run, as do
+multi-port execution (``n_ports > 1`` or a ``host_budget`` the space
+exceeds: the ``sharded`` backend, one CUDA stream per port), the overlapped
+``dataflow`` backend (``overlap=True``) and int8 halo quantization
+(``halo_quantize=True``).  The static verifier (``verify=True``) arrives
+with the analysis slice of the port; ``compile`` rejects it loudly.
 """
 from __future__ import annotations
 
@@ -336,20 +338,13 @@ class CompiledStencil:
 # --------------------------------------------------------------------------
 
 
-def _reject_unported(n_ports, overlap, halo_quantize, verify) -> None:
-    """Fail before the layout search for what no backend of the port runs."""
-    later = {
-        "n_ports > 1": (n_ports != 1, "the multi-port (sharded) slice"),
-        "overlap=True": (bool(overlap), "the dataflow slice"),
-        "halo_quantize=True": (bool(halo_quantize), "the multi-port slice"),
-        "verify=True": (bool(verify), "the analysis slice"),
-    }
-    for what, (asked, slice_) in later.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what}: not in the PyTorch port yet (it arrives with "
-                f"{slice_}); the reference package's repro.cfa.compile has it"
-            )
+def _reject_unported(verify) -> None:
+    """Fail before the layout search for what the port does not run yet."""
+    if verify:
+        raise NotImplementedError(
+            "verify=True: not in the PyTorch port yet (it arrives with the "
+            "analysis slice); the reference package's repro.cfa.compile has it"
+        )
 
 
 def compile(
@@ -382,9 +377,14 @@ def compile(
       program's default tile), a :class:`LayoutCandidate`, a previous
       :class:`LayoutDecision`, or a bare tile tuple (the paper's layout at
       that tile).
+    * ``n_ports`` — memory ports to repartition the facets over (§VII);
+      ``> 1`` lowers to the ``sharded`` backend, checked against the
+      target's port budget.
     * ``backend`` — a registered executor name, or ``"auto"``
-      (:func:`repro_torch.core.cfa.executors.select_backend`: ``cuda`` on
-      3-D spaces when it implements the storage, ``wavefront`` otherwise).
+      (:func:`repro_torch.core.cfa.executors.select_backend`: ``sharded``
+      for ``n_ports > 1``, ``dataflow`` for ``overlap=True``, else ``cuda``
+      on 3-D spaces when it implements the storage, ``wavefront``
+      otherwise).
     * ``storage`` — the facet storage discipline (Ferry 2024):
       ``"redundant"`` (the paper's duplicated layout, default),
       ``"irredundant"`` (each value stored exactly once; halo reads take
@@ -394,8 +394,15 @@ def compile(
     * ``codec`` — :class:`BlockCodec` or registered name for
       ``storage="compressed"`` (default ``deltapack16``); rejected loudly
       with any other storage.
+    * ``overlap`` — pipeline fetch/compute/commit (the ``dataflow``
+      backend, Fig. 13 DATAFLOW).
     * ``autotune_kwargs`` — passed through to :func:`autotune` when
       ``layout="autotune"`` (``seed``, ``budget``, ``cache_dir``, ...).
+    * ``host_budget`` — bytes of facet storage one port may hold; a space
+      whose facets exceed it is split over more ports (the ``distribute``
+      pass raises ``n_ports``).
+    * ``halo_quantize`` — round-trip every gathered halo piece through the
+      int8 quantizer (lossy halo traffic).
     * ``passes`` — a custom :class:`~repro_torch.core.cfa.passes.PassPipeline`
       to lower with instead of the default one.
     * ``trace`` — record a runtime :class:`~repro_torch.core.cfa.obs.
@@ -405,11 +412,10 @@ def compile(
     plus ``device``: the torch device facets live and tiles run on
     (``"cuda"`` by default; a missing card raises :class:`RuntimeError`).
 
-    ``n_ports > 1``, ``overlap=True``, ``halo_quantize=True`` and
-    ``verify=True`` belong to later slices of the port and raise
+    ``verify=True`` belongs to a later slice of the port and raises
     :class:`NotImplementedError`.
     """
-    _reject_unported(n_ports, overlap, halo_quantize, verify)
+    _reject_unported(verify)
     state = CompileState(
         program=program, space=space, target=target, n_ports=n_ports,
         layout=layout, backend=backend, storage=storage, codec=codec,

@@ -17,13 +17,19 @@ bit-exact across backends):
   counterpart of the reference's ``pallas`` backend, declared 3-D only —
   the paper's kernel configuration.  On a CPU pipeline the kernel's
   wrapper runs its plain PyTorch version.
+* ``sharded``   — multi-port wavefront (§VII): facet tensors placed on their
+  assigned ports, each wave split into one shard per port, every port a
+  CUDA stream of the one card (``repro_torch.distributed.sharding``); with
+  ``use_kernel`` the tile executor launches once per port.
+* ``dataflow``  — software-pipelined sweep: fetch, compute and commit of
+  consecutive tiles overlap (Fig. 13 DATAFLOW), the compute on a stream of
+  its own; ``use_kernel`` launches the tile executor once per tile.
 
-Every backend runs one port.  ``reference``, ``sweep`` and ``wavefront``
-implement all three facet storage disciplines (redundant, irredundant,
-compressed); ``cuda`` declares redundant and irredundant only — its kernels
-have no decode stage — so ``select_backend`` sends compressed storage to
-``wavefront``.  The multi-port ``sharded`` and the overlapped ``dataflow``
-backends arrive with later slices of the port.
+``sharded`` is the only multi-port backend; the others run one port.
+Every backend but ``cuda`` implements all three facet storage disciplines
+(redundant, irredundant, compressed); ``cuda`` declares redundant and
+irredundant only — its kernels have no decode stage — so ``select_backend``
+sends compressed storage to ``wavefront``.
 
 Custom backends register through :func:`register_executor`; the autotuner's
 cache key folds :func:`capability_fingerprint` in, so decisions re-search
@@ -171,6 +177,30 @@ def _cuda(pipeline: CFAPipeline, inputs, *, dtype, n_ports=1):
     return pipeline._sweep_wavefront(inputs, dtype, use_kernel=True)
 
 
+def _sharded(pipeline: CFAPipeline, inputs, *, dtype, n_ports=1, **opts):
+    return pipeline._sweep_wavefront_sharded(inputs, dtype, n_ports=n_ports,
+                                             **opts)
+
+
+def _dataflow(pipeline: CFAPipeline, inputs, *, dtype, n_ports=1,
+              use_kernel: bool = False):
+    # the kernel path keeps the reference's envelope: the tile/fetch kernel
+    # family is 3-D and has no decode stage
+    if use_kernel and pipeline.space.ndim != 3:
+        raise BackendError(
+            "backend 'dataflow' drives the CUDA tile executor only for 3-D "
+            f"spaces (use_kernel=True), got a {pipeline.space.ndim}-D space; "
+            "drop use_kernel for the host path"
+        )
+    if use_kernel and pipeline.storage == "compressed":
+        raise BackendError(
+            "backend 'dataflow' cannot drive the CUDA tile executor over "
+            "compressed facet storage (no in-kernel decode stage); drop "
+            "use_kernel for the host path"
+        )
+    return pipeline._sweep_dataflow(inputs, dtype, use_kernel=use_kernel)
+
+
 # --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
@@ -221,6 +251,23 @@ register_executor(_FnExecutor(
                  description="wavefront sweep through the hand-written CUDA "
                              "tile executor (one launch per wave, 3-D only)"),
     _cuda,
+))
+register_executor(_FnExecutor(
+    "sharded",
+    ExecutorCaps(multiport=True,
+                 description="port-mesh wavefront, one CUDA stream per port "
+                             "(§VII)"),
+    _sharded,
+    opts_allowed=("mesh", "axis", "assignment", "use_kernel"),
+))
+register_executor(_FnExecutor(
+    "dataflow",
+    ExecutorCaps(kernels=True, overlap=True,
+                 description="software-pipelined wavefront: fetch/compute/"
+                             "commit of consecutive tiles overlap "
+                             "(Fig. 13 DATAFLOW)"),
+    _dataflow,
+    opts_allowed=("use_kernel",),
 ))
 
 
@@ -306,23 +353,18 @@ def select_backend(
 ) -> str:
     """The ``backend="auto"`` rule, in one place:
 
-    * ``n_ports > 1`` or ``overlap=True`` — no backend of the port realises
-      them yet (the ``sharded`` and ``dataflow`` slices): raises
-      :class:`BackendError`;
-    * 3-D spaces → ``cuda`` (the paper's kernel configuration), when it
-      implements the storage discipline (not ``compressed``);
-    * anything else → ``wavefront`` (dimension-generic, batched).
+    1. ``n_ports > 1``  →  ``sharded``   (the only multiport backend);
+    2. ``overlap=True`` →  ``dataflow``  (the only backend that pipelines
+       fetch/compute/commit, Fig. 13 DATAFLOW);
+    3. 3-D spaces       →  ``cuda``      (the paper's kernel configuration)
+       — unless the requested storage discipline is outside the kernel
+       backend's declared envelope (compressed), in which case
+    4. anything else    →  ``wavefront`` (dimension-generic, batched).
     """
     if n_ports > 1:
-        raise BackendError(
-            f"n_ports={n_ports}: the PyTorch port has no multi-port backend "
-            f"yet (the sharded slice); compile with n_ports=1"
-        )
+        return "sharded"
     if overlap:
-        raise BackendError(
-            "overlap=True: the PyTorch port has no overlapped backend yet "
-            "(the dataflow slice); compile with overlap=False"
-        )
+        return "dataflow"
     if space.ndim == 3 and storage in EXECUTORS["cuda"].caps.storages:
         return "cuda"
     return "wavefront"

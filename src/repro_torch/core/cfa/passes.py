@@ -35,11 +35,10 @@ serving stale ones.
 This is the reference package's lowering, copied: the same passes, names
 and versions.  ``select_backend`` and ``lower_backend`` use the port's
 executor registry and its PyTorch ``CFAPipeline``, built on the state's
-``device``.  The ``distribute`` pass still computes its split, but no
-backend of the port runs ``n_ports > 1`` yet (the sharded slice), so an
-over-budget space is rejected by the backend gate; ``lower_backend``
-builds the redundant, irredundant or compressed pipeline and rejects
-``halo_quantize=True`` until the multi-port slice lands.
+``device``.  An over-budget space is split by ``distribute`` and lowers to
+the ``sharded`` backend; ``lower_backend`` builds the redundant,
+irredundant or compressed pipeline, with the int8 halo hook when
+``halo_quantize`` is set.
 """
 from __future__ import annotations
 
@@ -598,25 +597,18 @@ def select_backend(state: CompileState) -> CompileState:
 def lower_backend(state: CompileState) -> CompileState:
     """Instantiate the CFAPipeline for the storage discipline on the
     requested device and wrap it with the bound executor into the final
-    ``CompiledStencil``.
-
-    The int8 halo hook belongs to the multi-port slice and is rejected
-    here, loudly."""
+    ``CompiledStencil``."""
     from .api import CompiledStencil
     from .irredundant import CompressedPipeline, IrredundantPipeline
     from .transform import CFAPipeline
 
-    if state.halo_quantize:
-        raise NotImplementedError(
-            "halo_quantize=True: the PyTorch port has no int8 halo hook yet "
-            "(it arrives with the multi-port slice)"
-        )
     cand = state.candidate
     pipe_kwargs = dict(
         ext_dirs=cand.ext_dirs,
         contiguity=cand.contiguity or "intra-tile",
         decision=state.decision,
         port_assignment=state.port_assignment,
+        halo_quantize=state.halo_quantize,
         device=state.device,
     )
     if state.storage == "redundant":

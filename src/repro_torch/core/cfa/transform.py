@@ -44,6 +44,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.compression import dequantize_int8, quantize_int8
+
 from .facets import FacetSpec, build_facet_specs, row_major_strides
 from .programs import StencilProgram
 from .spaces import IterSpace, Tiling, box_points
@@ -65,8 +67,13 @@ class CFAPipeline:
     contiguity: str = "intra-tile"
     # the autotuner decision this pipeline was built from, if any
     decision: object | None = dataclasses.field(default=None, repr=False, compare=False)
-    # the compile-time facet->port split (single-port pipelines carry None)
+    # the compile-time facet->port split (the port_repartition pass); the
+    # sharded sweep prefers it over re-deriving one from the decision
     port_assignment: object | None = dataclasses.field(default=None, repr=False, compare=False)
+    # round-trip every gathered halo piece through the int8 quantizer of
+    # repro_torch.distributed.compression (lossy halo traffic, the distribute
+    # pass's compression knob; False keeps results bit-exact)
+    halo_quantize: bool = False
     # runtime telemetry (repro_torch.core.cfa.obs.TraceRecorder); None =
     # tracing off, and the executors pay exactly one `is None` check per
     # phase — no recorder or span allocation on the hot path
@@ -98,8 +105,16 @@ class CFAPipeline:
             raise ValueError("time axis must carry a facet (w_0 >= 1)")
 
     def _index(self, idx: np.ndarray) -> torch.Tensor:
-        """A numpy index array as an int64 tensor on the pipeline's device."""
-        return torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(self.device)
+        """A numpy index array as an int64 tensor on the pipeline's device.
+
+        On a CUDA device the upload goes through pinned memory and does not
+        wait: an upload from pageable memory synchronises the stream, which
+        would hold the host at every gather and commit (and serialise the
+        dataflow sweep's overlap)."""
+        t = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     # -- storage -----------------------------------------------------------
 
@@ -215,12 +230,17 @@ class CFAPipeline:
                 taken |= mask
         return maps
 
-    def copy_in(self, facets: dict[int, torch.Tensor], tile: tuple[int, ...]) -> torch.Tensor:
+    def copy_in(self, facets: dict[int, torch.Tensor], tile: tuple[int, ...],
+                out: torch.Tensor | None = None) -> torch.Tensor:
         """Gather the tile's flow-in into a halo buffer of shape (w + t).
 
         All of the tile's source and destination offsets are computed on the
         host, moved to the device as one index tensor, and applied as one
-        gather per facet and one scatter into the (zero-initialised) buffer.
+        gather per facet and one scatter into the (zero-initialised) buffer:
+        a new one, or ``out`` (contiguous, zeroed here) when given.  Under
+        ``halo_quantize`` each gathered piece — one per facet, the virtual
+        live-in row apart — round-trips through the int8 quantizer with its
+        own scale before the scatter, as in the reference.
         """
         rec = self.recorder
         t_start = rec.now() if rec is not None else 0.0
@@ -247,15 +267,18 @@ class CFAPipeline:
             keys.append(key)
             srcs.append(offs)
             dsts.append((pts - (lo - w)) @ row_major_strides(shape))
-        H = torch.zeros(shape, dtype=facets[0].dtype, device=self.device)
+        if out is None:
+            H = torch.zeros(shape, dtype=facets[0].dtype, device=self.device)
+        else:
+            H = out.zero_()
         if keys:
             idx = self._index(np.concatenate(srcs + dsts))
             src_idx = idx[:idx.numel() // 2]
-            vals = torch.cat([
-                facets[key].reshape(-1)[part] for key, part in zip(
-                    keys, torch.split(src_idx, [len(s) for s in srcs]))
-            ])
-            H.view(-1)[idx[idx.numel() // 2:]] = vals
+            pieces = [facets[key].reshape(-1)[part] for key, part in zip(
+                keys, torch.split(src_idx, [len(s) for s in srcs]))]
+            if self.halo_quantize:
+                pieces = [dequantize_int8(*quantize_int8(v)).to(v.dtype) for v in pieces]
+            H.view(-1)[idx[idx.numel() // 2:]] = torch.cat(pieces)
         if rec is not None:
             rec.add_span("copy_in", t_start, rec.now(),
                          track=rec.track("fetch"),
@@ -399,6 +422,213 @@ class CFAPipeline:
                 rec.end(tok)
             for tile, H in zip(wave, outs):
                 facets = self.copy_out(facets, tile, H)
+        return facets
+
+    # -- dataflow (overlapped) sweep ----------------------------------------
+
+    def _sweep_dataflow(self, inputs: torch.Tensor, dtype=torch.float32,
+                        use_kernel: bool = False) -> dict[int, torch.Tensor]:
+        """Software-pipelined wavefront sweep: fetch, compute and commit of
+        consecutive tiles overlap (Fig. 13 DATAFLOW) — the
+        ``backend="dataflow"`` executor's entry point.
+
+        Same plane arithmetic and the same facet commits as ``_sweep`` —
+        only the interleaving changes.  Within a wave, tile ``j`` is
+        dispatched, then tile ``j-1`` is committed and tile ``j+1``
+        gathered while ``j`` computes.  This is legal because every halo
+        point a wave-``s`` tile reads was committed by a strictly earlier
+        wave (see :meth:`wavefronts`), so a fetch never races a same-wave
+        commit; the pipeline drains at each wave's end.
+
+        On a CUDA device the compute runs on a stream of its own, ordered
+        after its tile's gather by the stream wait; gathers and commits stay
+        on the caller's stream, and a commit waits on its tile's compute
+        event.  Tiles alternate between a ping-pong pair of preallocated
+        halo buffers (the counterpart of the reference's donated staging
+        buffer): tile ``j+1`` is gathered into the buffer tile ``j-1`` was
+        just committed from.  ``use_kernel`` runs each tile through the
+        hand-written CUDA tile executor, one launch per tile; on the CPU the
+        phases run in the same order on the host.
+        """
+        facets = self._prepare(inputs, dtype)
+        interior = self._interior_slices(self.widths)
+        shape = tuple(w + t for w, t in zip(self.widths, self.tiling.sizes))
+        bufs = [torch.empty(shape, dtype=dtype, device=self.device) for _ in range(2)]
+        compute = None
+        if self.device.type == "cuda":
+            compute = torch.cuda.Stream(self.device)
+            for buf in bufs:
+                buf.record_stream(compute)
+        if use_kernel:
+            from repro_torch.kernels.stencil import execute_tiles
+
+            def _execute(H):
+                H[interior] = execute_tiles(self.program.name, H[None],
+                                            self.tiling.sizes)[0]
+        else:
+            _execute = self.execute_tile
+
+        def dispatch(H):
+            """Start the tile's compute; the event that marks its end
+            (None on the CPU, where it has run when this returns)."""
+            if compute is None:
+                _execute(H)
+                return None
+            compute.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(compute):
+                _execute(H)
+            return compute.record_event()
+
+        rec = self.recorder
+        waves = self.wavefronts()
+        if rec is not None:
+            rec.counters.add("waves", len(waves))
+        for wave in waves:
+            nxt = self.copy_in(facets, wave[0], out=bufs[0])
+            prev = None  # (tile, halo buffer, compute event, span token)
+            for j, tile in enumerate(wave):
+                # the compute span brackets the whole in-flight window:
+                # opened at dispatch, closed when this tile's commit begins —
+                # so the previous tile's commit and the next tile's prefetch
+                # land inside it as concurrent lanes
+                tok = rec.begin("execute_tile", track=rec.track("compute"),
+                                tile=list(tile), wave=int(sum(tile)),
+                                port=rec.port) if rec is not None else None
+                H = nxt
+                done = dispatch(H)
+                if prev is not None:
+                    facets = self._commit_after(facets, *prev)
+                if j + 1 < len(wave):
+                    nxt = self.copy_in(facets, wave[j + 1], out=bufs[(j + 1) % 2])
+                prev = (tile, H, done, tok)
+            facets = self._commit_after(facets, *prev)
+        return facets
+
+    def _commit_after(self, facets, tile, H, done, tok):
+        """``copy_out`` of a dispatched tile on the caller's stream, once its
+        compute (event ``done``) has finished; closes its compute span."""
+        if tok is not None:
+            self.recorder.end(tok)
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
+        return self.copy_out(facets, tile, H)
+
+    # -- multi-port sharded sweep -------------------------------------------
+
+    def _sweep_wavefront_sharded(
+        self,
+        inputs: torch.Tensor,
+        dtype=torch.float32,
+        *,
+        n_ports: int = 2,
+        mesh=None,
+        axis: str = "port",
+        assignment=None,
+        use_kernel: bool = False,
+    ) -> dict[int, torch.Tensor]:
+        """Multi-port wavefront sweep (paper §VII made an execution path) —
+        the ``backend="sharded"`` executor's entry point.
+
+        * the facet tensors are placed on their assigned ports
+          (``repro_torch.distributed.sharding.shard_facets``); ``assignment``
+          defaults to this pipeline's compile-time ``port_assignment``, then
+          the autotuned decision's split (only when the decision's best
+          candidate has this tiling), then the LPT split of
+          ``multiport.assign_ports``;
+        * every wave's tiles are independent, so each wave is batched,
+          padded to a multiple of the shard count by repeating tiles, and
+          split into one contiguous shard per port: through
+          ``execute_tiles_sharded`` (the CUDA tile executor launched once
+          per port, each on its port's stream) when ``use_kernel``, else the
+          plane recurrence of ``execute_tile`` per tile on the port's stream.
+
+        ``mesh`` is a :class:`~repro_torch.distributed.sharding.PortMesh`
+        on the pipeline's device (default: ``port_mesh(n_ports)``, one CUDA
+        stream per port; on the CPU the ports run in order).  The executed
+        planes stay on the device.  Bit-exact against ``_sweep``: ports
+        change where tiles run, never the plane arithmetic or the commits.
+        """
+        from repro_torch.distributed.sharding import port_mesh, shard_facets
+
+        from .multiport import assign_ports
+
+        if assignment is None:
+            pa = self.port_assignment
+            if pa is not None and getattr(pa, "n_ports", None) == n_ports:
+                assignment = pa
+        if assignment is None:
+            decision = self.decision
+            if decision is not None and getattr(decision, "n_ports", 1) == n_ports:
+                # only reuse the decision's facet->port split when this
+                # pipeline instantiates the candidate it was computed for
+                try:
+                    best = decision.best_cfa()
+                except LookupError:
+                    best = None
+                if best is not None and tuple(best.candidate.tile) == self.tiling.sizes:
+                    assignment = decision.port_assignment  # may still be None
+        if assignment is None:
+            assignment = assign_ports(self.space, self.program.deps,
+                                      self.tiling, n_ports)
+        mesh = mesh if mesh is not None else port_mesh(n_ports, self.device, axis)
+        if mesh.axis != axis:
+            raise ValueError(f"mesh axis is {mesh.axis!r}, not {axis!r}")
+        if mesh.device != self.device:
+            raise ValueError(f"the port mesh is on {mesh.device}, the pipeline on "
+                             f"{self.device}")
+        n_shards = mesh.n_ports
+
+        facets = shard_facets(self._prepare(inputs, dtype),
+                              assignment.facet_to_port, mesh)
+        interior = self._interior_slices(self.widths)
+        rec = self.recorder
+        waves = self.wavefronts()
+        if rec is not None:
+            rec.counters.add("waves", len(waves))
+        for wave in waves:
+            # pad the wave to a multiple of the shard count by repeating
+            # tiles (a wave can be smaller than the mesh — the first wave is
+            # always one tile); the repeats' results are dropped
+            target = -(-len(wave) // n_shards) * n_shards
+            gathered = []
+            for i, t in enumerate(wave):
+                if rec is not None:
+                    # tile i runs on shard i of the padded batch — group its
+                    # spans under that port's lanes
+                    rec.port = i * n_shards // target
+                gathered.append(self.copy_in(facets, t))
+            halos = torch.stack(gathered)
+            if rec is not None:
+                rec.port = 0
+            if target != len(wave):
+                reps = -(-target // len(wave))
+                halos = torch.cat([halos] * reps)[:target]
+            tok = rec.begin("execute_wave", track=rec.track("compute"),
+                            wave=int(sum(wave[0])), n_tiles=len(wave),
+                            n_ports=n_shards,
+                            ) if rec is not None else None
+            if use_kernel:
+                from repro_torch.kernels.stencil import execute_tiles_sharded
+
+                interiors = execute_tiles_sharded(self.program.name, halos,
+                                                  self.tiling.sizes, mesh)
+                halos[(slice(None), *interior)] = interiors
+            else:
+                m = target // n_shards
+
+                def shard(p):
+                    for i in range(p * m, (p + 1) * m):
+                        self.execute_tile(halos[i])
+
+                mesh.run(shard, shared=(halos,))
+            if tok is not None:
+                rec.end(tok)
+            for i, tile in enumerate(wave):
+                if rec is not None:
+                    rec.port = i * n_shards // target
+                facets = self.copy_out(facets, tile, halos[i])
+            if rec is not None:
+                rec.port = 0
         return facets
 
     # -- oracle ----------------------------------------------------------------

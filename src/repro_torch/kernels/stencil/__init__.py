@@ -1,5 +1,7 @@
-"""The CFA stencil tile executor: CUDA kernel + plain PyTorch version."""
+"""The CFA stencil tile executor: CUDA kernel + plain PyTorch version, and
+its per-port (multi-port) wrapper."""
 from .ref import execute_tiles_ref
 from .stencil import execute_tiles
+from .ops import execute_tiles_sharded
 
-__all__ = ["execute_tiles", "execute_tiles_ref"]
+__all__ = ["execute_tiles", "execute_tiles_ref", "execute_tiles_sharded"]

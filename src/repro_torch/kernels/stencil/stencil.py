@@ -71,12 +71,16 @@ def execute_tiles(
     program_name: str,
     halos: torch.Tensor,  # (B, w0+t0, .., w_{d-1}+t_{d-1})
     tile: tuple[int, ...],
+    *,
+    out: torch.Tensor | None = None,  # (B, t0, .., t_{d-1}), written in place
 ) -> torch.Tensor:  # (B, t0, .., t_{d-1})
     """Run the tile executor over a batch of gathered halo buffers.
 
     Dimension-generic: ``tile`` has one entry per iteration-space axis
     (time first), so 2-D (``heat1d``), 3-D (Table I) and 4-D (``heat3d``)
-    programs share this path.
+    programs share this path.  ``out`` (contiguous, the halos' dtype and
+    device) receives the interiors instead of a new tensor — the per-port
+    launches of ``execute_tiles_sharded`` write their shards of one output.
     """
     program = get_program(program_name)
     w = program.widths
@@ -89,14 +93,21 @@ def execute_tiles(
         raise ValueError(f"halos must be (B, {hshape}), got {tuple(halos.shape)}")
     if halos.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"halos must be float32 or float64, got {halos.dtype}")
+    B = halos.shape[0]
+    if out is not None and (tuple(out.shape) != (B, *tile) or out.dtype != halos.dtype
+                            or out.device != halos.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {halos.dtype} tensor of shape "
+                         f"{(B, *tile)} on {halos.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
     if halos.device.type == "cpu":
-        return execute_tiles_ref(program, halos, tile)
+        got = execute_tiles_ref(program, halos, tile)
+        return got if out is None else out.copy_(got)
     if halos.device.type != "cuda":
         raise ValueError(f"halos must be on a CUDA device or the CPU, got {halos.device}")
     if not halos.is_contiguous():
         raise ValueError("halos must be contiguous")
-    B = halos.shape[0]
-    out = torch.empty((B, *tile), dtype=halos.dtype, device=halos.device)
+    if out is None:
+        out = torch.empty((B, *tile), dtype=halos.dtype, device=halos.device)
     if B == 0:
         return out
     combine, centre, n, depth, offs, values = _packed_terms(program.name)

@@ -87,8 +87,9 @@ def init_position(kind: str, fk: str, cfg: ArchConfig, *, generator=None,
 
 
 def cache_position(kind: str, cfg: ArchConfig, batch: int, seq: int,
-                   dtype=torch.bfloat16, device="cpu") -> dict:
-    """Zero-initialised decode cache slot for one layer."""
+                   dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zero-initialised decode cache slot for one layer, on the CUDA device
+    unless the caller asks for the CPU."""
     if kind == "attn":
         return {"kv": KVCache.zeros(cfg, batch, seq, dtype, device)}
     if kind == "mamba":

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cfa.api import resolve_device
 from repro_torch.kernels.block_attention import append_token, decode_attention
 
 from .config import ArchConfig
@@ -91,7 +92,10 @@ class KVCache:
 
     @staticmethod
     def zeros(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
-              device="cpu") -> "KVCache":
+              device="cuda") -> "KVCache":
+        """Zeros on ``device``: the CUDA device unless the caller asks for
+        the CPU (a missing card raises)."""
+        device = resolve_device(device)
         bs = cfg.kv_block
         nb = -(-seq // bs)
         shape = (batch, nb, cfg.stored_kv_heads, bs, cfg.head_dim)

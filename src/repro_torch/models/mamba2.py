@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cfa.api import resolve_device
 from repro_torch.kernels.ssd import ssd_decode_step, ssd_scan
 
 from .config import ArchConfig
@@ -34,7 +35,11 @@ class MambaCache:
     state: torch.Tensor  # (B, H, P, N) float32
 
     @staticmethod
-    def zeros(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, device="cpu") -> "MambaCache":
+    def zeros(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
+              device="cuda") -> "MambaCache":
+        """Zeros on ``device``: the CUDA device unless the caller asks for
+        the CPU (a missing card raises)."""
+        device = resolve_device(device)
         K, din, n = cfg.ssm_conv, cfg.ssm_d_inner, cfg.ssm_state
         h, pd = cfg.ssm_heads, cfg.ssm_head_dim
         return MambaCache(

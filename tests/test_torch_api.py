@@ -10,7 +10,8 @@
 * ``layout="autotune"`` picks the reference's candidate, and a layout the
   reference chose runs in the port through ``repro_torch.interop``;
 * a traced run reconciles exactly; the default ``device="cuda"`` raises
-  without a card; what no backend of the port runs yet raises.
+  without a card; what the port does not run yet (``verify``, the
+  ``pallas`` backend, measured reports) raises.
 """
 import dataclasses
 import functools
@@ -168,19 +169,30 @@ def test_default_device_is_cuda_and_needs_a_card():
         cfa.compile("jacobi2d5p", (8, 8, 8), layout=(4, 4, 4))(_inputs("jacobi2d5p"))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(n_ports=2), dict(overlap=True), dict(halo_quantize=True), dict(verify=True),
+@pytest.mark.parametrize("kw,backend", [
+    (dict(n_ports=2), "sharded"), (dict(overlap=True), "dataflow"),
+    (dict(halo_quantize=True), "cuda"), (dict(verify=True), None),
 ], ids=["n_ports", "overlap", "halo_quantize", "verify"])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="PyTorch port"):
-        _port("jacobi2d5p", **kw)
+def test_unported_options_raise(kw, backend):
+    """Of the options the port once rejected, only ``verify`` (the analysis
+    slice) still raises; the multi-port, dataflow and halo-quantize options
+    compile to their backends."""
+    if backend is None:
+        with pytest.raises(NotImplementedError, match="PyTorch port"):
+            _port("jacobi2d5p", **kw)
+        return
+    compiled = _port("jacobi2d5p", **kw)
+    assert compiled.backend == backend
+    assert compiled.pipeline.halo_quantize == kw.get("halo_quantize", False)
+    assert compiled.n_ports == kw.get("n_ports", 1)
 
 
 def test_unported_backends_and_methods_raise():
     compiled = _port("jacobi2d5p")
-    for backend in ("pallas", "sharded", "dataflow"):
-        with pytest.raises(cfa.BackendError, match="unknown backend"):
-            compiled.lower(backend)
+    with pytest.raises(cfa.BackendError, match="unknown backend"):
+        compiled.lower("pallas")
+    for backend in ("sharded", "dataflow"):
+        assert compiled.lower(backend).backend == backend
     with pytest.raises(cfa.BackendError, match="3-D spaces only"):
         _port("heat1d", "cuda")
     with pytest.raises(NotImplementedError, match="calibration"):
@@ -194,7 +206,8 @@ def test_unported_backends_and_methods_raise():
     # the storage disciplines run: the codec is no longer a stub
     assert torch.equal(cfa.get_codec("deltapack16").roundtrip(torch.zeros(4)), torch.zeros(4))
     assert "tpu-v5e-hbm" not in cfa.TARGETS and list(cfa.TARGETS) == ["axi-zc706"]
-    assert sorted(cfa.EXECUTORS) == ["cuda", "reference", "sweep", "wavefront"]
+    assert sorted(cfa.EXECUTORS) == ["cuda", "dataflow", "reference", "sharded", "sweep",
+                                     "wavefront"]
 
 
 def test_public_surface_is_a_subset_of_the_reference():

@@ -181,7 +181,7 @@ def test_attention_prefill_and_its_block_cache():
     pos = np.arange(13)[None]
     want, wcache = jl.attention(p, jnp.asarray(x), jcfg, positions=jnp.asarray(pos),
                                 cache=jl.KVCache.zeros(jcfg, 2, 40))
-    cache = tl.KVCache.zeros(tcfg, 2, 40)
+    cache = tl.KVCache.zeros(tcfg, 2, 40, device="cpu")
     got, gcache = tl.attention(model.layers[0].mixer, torch.from_numpy(x),
                                positions=torch.from_numpy(pos), cache=cache)
     assert gcache is cache
@@ -369,3 +369,20 @@ def test_entry_points_default_to_the_card():
     for call in (lambda: init_lm(cfg), lambda: init_caches(cfg, 1, 8), lambda: LM(cfg)):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             call()
+
+
+def test_cache_constructors_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    from repro_torch.models.blocks import cache_position
+
+    cfg = get_smoke_config("mamba2-370m")
+    for call in (lambda **kw: tl.KVCache.zeros(cfg, 1, 8, **kw),
+                 lambda **kw: tm.MambaCache.zeros(cfg, 1, **kw),
+                 lambda **kw: cache_position("attn", cfg, 1, 8, **kw),
+                 lambda **kw: cache_position("mamba", cfg, 1, 8, **kw)):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            call()
+        cache = call(device="cpu")
+        for c in cache.values() if isinstance(cache, dict) else [cache]:
+            assert all(getattr(c, f.name).device.type == "cpu" for f in dataclasses.fields(c))
