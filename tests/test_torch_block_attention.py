@@ -10,10 +10,12 @@ and handed to both packages:
   the partial final block, in float32 (tolerance 2e-5) and bfloat16 (3e-2,
   the reference's own);
 * ``blockify``/``deblockify``/``append_token`` bit for bit;
-* the kernel's walk (key tiles of 64 positions over the valid prefix only,
-  a tile straddling two blocks, the masked tail, the all -inf guard),
+* the kernel's plan (split-K over fixed ranges of each block, splits past
+  the length exiting, staged sub-tiles of the valid rows only, online
+  softmax with the all -inf guard, the partials merged in split order),
   transliterated to numpy from ``csrc/block_attention.cu``, against the
-  plain version;
+  plain version, and the host's launch plan (grid from the static shape,
+  shared memory for several CTAs per SM);
 * the rejections, the launch counter and the C entry point's arity.
 """
 import ast
@@ -177,54 +179,95 @@ def test_append_past_the_capacity_raises():
         append_token(blocks, blocks.clone(), new, new, torch.tensor([1, 2, 3]))
 
 
-def _kernel_walk(q, k_blocks, v_blocks, lengths, tile=64):
-    """numpy transliteration of csrc/block_attention.cu: per (kv head, row),
-    key tiles of ``tile`` positions over [0, length) only, position ->
-    (pos // bs, pos % bs), masked tail -inf, online softmax with the
-    all -inf guard, out = acc / l."""
+def _kernel_walk(q, k_blocks, v_blocks, lengths):
+    """numpy transliteration of csrc/block_attention.cu at the wrapper's
+    launch plan: per (row, kv head) the splits that start below the length
+    (at least split 0), each over the valid rows of its range in staged
+    sub-tiles with online softmax and the all -inf guard, giving a partial
+    (m, l, acc); one split writes acc / l, several are merged in split
+    order with weights exp(m_s - max m)."""
     B, nb, Hkv, bs, D = k_blocks.shape
     Hq = q.shape[1]
     G = Hq // Hkv
+    plan = attn_mod.launch_plan(B, Hq, Hkv, nb, bs, D, k_blocks.dtype.itemsize)
+    assert plan.grid == (nb * plan.nspb, Hkv, B)
+    scale = np.float32(math.sqrt(D))
     out = np.zeros((B, Hq, D), np.float32)
-    for b in range(B):
-        length = min(int(lengths[b]), nb * bs)
-        for h in range(Hkv):
-            qs = q[b, h * G:(h + 1) * G].astype(np.float32)
-            m = np.full(G, -np.inf, np.float32)
-            l = np.zeros(G, np.float32)
-            acc = np.zeros((G, D), np.float32)
-            for base in range(0, length, tile):
-                pos = np.arange(base, base + tile)
-                valid = pos < length
-                pv = np.where(valid, pos, 0)
-                keys = k_blocks[b, pv // bs, h, pv % bs].astype(np.float32)  # (tile, D)
-                vals = v_blocks[b, pv // bs, h, pv % bs].astype(np.float32)
-                s = np.where(valid[None], qs @ keys.T / np.float32(math.sqrt(D)), -np.inf)
-                m_new = np.maximum(m, s.max(axis=1))
-                fin = np.isfinite(m_new)
-                p = np.where(fin[:, None], np.exp(s - np.where(fin, m_new, 0)[:, None]), 0.0)
-                alpha = np.where(fin, np.exp(m - np.where(fin, m_new, 0)), 1.0)
-                l = l * alpha + p.sum(axis=1)
-                acc = acc * alpha[:, None] + p[:, valid] @ vals[valid]
-                m = m_new
-            with np.errstate(invalid="ignore", divide="ignore"):
-                out[b, h * G:(h + 1) * G] = acc / l[:, None]
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        for b in range(B):
+            L = max(0, min(int(lengths[b]), nb * bs))
+            n_work = plan.n_work(L)
+            for h in range(Hkv):
+                qs = q[b, h * G:(h + 1) * G].astype(np.float32)
+                parts = []
+                for s in range(n_work):  # CTAs s >= n_work exit at once
+                    blk, r0 = s // plan.nspb, s % plan.nspb * plan.split
+                    n_valid = max(0, min(plan.split, bs - r0, L - (blk * bs + r0)))
+                    m = np.full(G, -np.inf, np.float32)
+                    l = np.zeros(G, np.float32)
+                    acc = np.zeros((G, D), np.float32)
+                    for i0 in range(0, n_valid, plan.sub):  # staged rows below the length only
+                        rows = r0 + i0 + np.arange(min(plan.sub, n_valid - i0))
+                        keys = k_blocks[b, blk, h, rows].astype(np.float32)
+                        vals = v_blocks[b, blk, h, rows].astype(np.float32)
+                        sc = qs @ keys.T / scale
+                        m_new = np.maximum(m, sc.max(axis=1))
+                        fin = np.isfinite(m_new)
+                        p = np.where(fin[:, None], np.exp(sc - m_new[:, None]), 0.0)
+                        alpha = np.where(fin, np.exp(m - m_new), 1.0)
+                        l = l * alpha + p.sum(axis=1)
+                        acc = acc * alpha[:, None] + p @ vals
+                        m = m_new
+                    parts.append((m, l, acc))
+                if len(parts) == 1:
+                    m, l, acc = parts[0]
+                    res = acc / l[:, None]
+                else:
+                    mx = np.max([pm for pm, _, _ in parts], axis=0)
+                    fin = np.isfinite(mx)
+                    lsum, num = np.zeros(G, np.float32), np.zeros((G, D), np.float32)
+                    for pm, pl, pa in parts:  # split order
+                        w = np.where(fin, np.exp(pm - mx), 0.0).astype(np.float32)
+                        lsum = lsum + w * pl
+                        num = num + w[:, None] * pa
+                    res = num / lsum[:, None]
+                out[b, h * G:(h + 1) * G] = res
     return out
 
 
-@pytest.mark.parametrize("bs,lengths", [
-    (16, [1, 64, 65, 130]),   # tiles span four blocks; a tile of exactly one block
-    (48, [47, 48, 49, 192]),  # tiles straddle block boundaries
-    (256, [1, 256, 257, 512]),  # qwen3's block size; lengths as in chip_smoke.py
+@pytest.mark.parametrize("B,Hq,Hkv,D,bs,lengths", [
+    (4, 8, 4, 32, 16, [1, 64, 65, 130]),      # splits of whole 16-row blocks
+    (4, 8, 4, 32, 48, [47, 48, 49, 192]),     # lengths at block boundaries +-1
+    (4, 8, 4, 32, 256, [1, 256, 257, 512]),   # qwen3's block size: two splits per block
+    (8, 16, 8, 128, 256, [1, 127, 128, 129, 255, 256, 257, 512]),  # qwen3, 2 blocks deep
+    (3, 8, 2, 32, 512, [1, 383, 1024]),       # splits wholly past the length exit
+    (2, 16, 1, 64, 64, [5, 200]),             # G = 16 (MQA)
+    (3, 4, 2, 256, 32, [1, 33, 96]),          # D = 256: 16-row sub-tiles in float32
+    (2, 4, 2, 16, 32, [0, 40]),               # an empty row: 0/0 like the plain version
 ])
-def test_the_kernels_walk_matches_the_plain_version(bs, lengths):
-    B, Hq, Hkv, D = 4, 8, 4, 32
-    S = max(lengths) + (-max(lengths)) % bs
+def test_the_kernels_walk_matches_the_plain_version(B, Hq, Hkv, D, bs, lengths):
+    S = max(max(lengths), 1) + (-max(max(lengths), 1)) % bs
     q, kc, vc, lengths = _inputs(21, B, Hq, Hkv, D, S, lengths=lengths)
     kb, vb = blockify(torch.from_numpy(kc), bs), blockify(torch.from_numpy(vc), bs)
     want = decode_attention(torch.from_numpy(q), kb, vb, torch.from_numpy(lengths))
     got = _kernel_walk(q, kb.numpy(), vb.numpy(), lengths)
     np.testing.assert_allclose(got, want.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_launch_plan_at_the_qwen3_decode_tick():
+    """The grid follows from the static shape alone; a CTA's ring and
+    accumulators leave room for three per SM (228 KB), and the splits that
+    work follow the lengths."""
+    plan = attn_mod.launch_plan(8, 16, 8, 8, 256, 128, 2)
+    assert plan.grid == (16, 8, 8) and (plan.split, plan.nspb, plan.sub) == (128, 2, 64)
+    assert plan.bulk and plan.smem == 4 * 64 * 128 * 2 + 4 * (2 * 2 * 128 + 2 * 64 + 6)
+    assert 3 * (plan.smem + 1024) <= 233472
+    lengths = [1, 128, 129, 256, 257, 2048, 0, 5000]
+    assert [plan.n_work(n) for n in lengths] == [1, 1, 2, 2, 3, 16, 1, 16]
+    assert plan.working(lengths) == 8 * 42
+    # float32 K/V at D 256: 16-row sub-tiles keep a stage at 16 KiB
+    assert attn_mod.launch_plan(1, 16, 1, 1, 64, 256, 4).sub == 16
+    assert not attn_mod.launch_plan(1, 2, 1, 1, 64, 33, 4).bulk  # 132-byte rows: word loads
 
 
 def test_plain_version_is_the_wrapper_on_cpu_and_does_not_count():
@@ -265,7 +308,7 @@ def test_c_entry_point_matches_the_ctypes_binding():
     argtypes = next(node.value for node in ast.walk(tree)
                     if isinstance(node, ast.Assign)
                     and any(getattr(t, "attr", None) == "argtypes" for t in node.targets))
-    assert len(argtypes.elts) == n_params == 14
+    assert len(argtypes.elts) == n_params == 20
 
 
 @pytest.mark.cuda

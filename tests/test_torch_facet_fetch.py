@@ -12,9 +12,11 @@ held bit for bit against the reference's in ``test_torch_storage.py`` and
   storage, and against the reference's irredundant kernel and its
   owner-resolved ``IrredundantPipeline.copy_in`` under irredundant storage
   (tolerance 0: the function moves data and computes nothing);
-* the kernel's per-element rule (owner axis, tile shift, host strides),
-  transliterated to numpy from ``csrc/facet_fetch.cu``, against the plain
-  version;
+* the kernel's burst plan (per tile the (facet, start, length) bursts of
+  ``burst_plan``, the merged pairs adjacent in the facet array, their union
+  covering every element the plain version reads) and its assembly from
+  the staged bursts by the owner rule, transliterated to numpy from
+  ``csrc/facet_fetch.cu``, against the plain version bit for bit;
 * the slice end to end on the CPU: autotune -> ``best_cfa(kernel_compatible
   =True)`` -> ``compile(storage="irredundant")`` -> run -> fetch;
 * the rejections (messages of the reference), the launch counter and the
@@ -171,44 +173,158 @@ def test_t_equal_w_axis(storage):
 # ---------------------------------------------------------------------------
 
 
+#: the kernel's slots: (facet, tile offset of the first block, pair axis or None)
+SLOTS = [(0, (-1, -1, 0), 1), (0, (-1, -1, -1), 1), (1, (0, -1, -1), 2), (2, (0, 0, -1), None),
+         (0, (0, -1, 0), None), (0, (0, -1, -1), 1), (1, (0, 0, -1), None)]
+
+
+def _block_start(facets, k, tile) -> int:
+    """Flat element index of facet ``k``'s block of ``tile``, from the array's
+    own shape and the layout's outer order (facet_0 past its virtual row)."""
+    a, b, c = tile
+    outer = {0: (a + 1, c, b), 1: (b, a, c), 2: (c, b, a)}[k]
+    return int(np.ravel_multi_index((*outer, 0, 0, 0), tuple(facets[k].shape)))
+
+
+def _tiles(geo):
+    return [tuple(int(i) + 1 for i in q) for q in np.ndindex(*geo.g)]
+
+
+def _bursts(facets, geo, storage, q):
+    """The kernel's bursts of tile ``q``: (facet, slot base, start, len) in
+    flat elements of the facet array, from ``burst_plan``'s ``c + q . s``."""
+    slots, _ = fetch_mod.burst_plan(geo, facets, storage, facets[0].element_size())
+    return [(k, c + int(np.dot(q, (s0, s1, s2))), start, n)
+            for k, c, s0, s1, s2, _, start, n in slots.tolist()]
+
+
 def _kernel_rule(facets, geo, storage):
-    """``facet_fetch_kernel`` of ``csrc/facet_fetch.cu`` over every output
-    element at once: the owner axis per element, the tile shift and the
-    host strides of ``facet_fetch._strides``."""
-    (g, w, t) = geo.g, np.array(geo.w), np.array(geo.t)
-    s = fetch_mod._strides(geo.specs, facets)
-    base, outer, inner = s[:3], s[3:12].reshape(3, 3), s[12:].reshape(3, 3)
+    """``facet_fetch_kernel`` of ``csrc/facet_fetch.cu`` per tile: stage each
+    burst into its slot (the rest of a slot is NaN, never to be read), then
+    assemble every output element from the slots by the owner rule."""
+    w, t = np.array(geo.w), np.array(geo.t)
+    (w0, w1, w2), (t0, t1, t2) = w, t
+    B0, B1 = t1 * t2 * w0, t2 * t0 * w1
     h = w + t
-    idx = np.indices((*g, *h)).reshape(6, -1)
-    q, x = idx[:3] + 1, idx[3:]
+    x = np.indices(tuple(h)).reshape(3, -1)
     halo = x < w[:, None]
-    in_slab = x >= t[:, None]
-    cand = halo | (in_slab if storage == "irredundant" else False)
-    owner = np.where(cand.any(0), cand.argmax(0), -1)
+    irr = storage == "irredundant"
+    own = halo | ((x >= t[:, None]) & irr)
     flat = [f.reshape(-1).numpy() for f in (facets[0], facets[1], facets[2])]
-    out = np.zeros(idx.shape[1], dtype=flat[0].dtype)
-    for k in range(3):
-        sel = halo.any(0) & (owner == k)
-        off = np.full(sel.sum(), base[k])
-        for a in range(3):
-            xa, ha = x[a, sel], halo[a, sel]
-            i = xa % w[a] if a == k else xa - w[a] + np.where(ha, t[a], 0)
-            off += (q[a, sel] - ha) * outer[k, a] + i * inner[k, a]
-        out[sel] = flat[k][off]
-    return out.reshape(*g, *h)
+    out = np.zeros((*geo.g, *h), dtype=flat[0].dtype)
+    for q in _tiles(geo):
+        staged = []
+        for k, base, start, n in _bursts(facets, geo, storage, q):
+            slot = np.full(start + n, np.nan, flat[0].dtype)
+            slot[start:] = flat[k][base + start:base + start + n]
+            staged.append(slot)
+        vals = np.zeros(x.shape[1], flat[0].dtype)
+        i2 = x[2] - w2 + np.where(halo[2], t2, 0)
+        i1 = x[1] - w1 + np.where(halo[1], t1, 0)
+        sel0 = halo.any(0) & own[0]
+        sel1 = halo.any(0) & ~own[0] & own[1]
+        sel2 = halo.any(0) & ~own[0] & ~own[1]
+        for e in np.flatnonzero(sel0):
+            sp = staged[(1 if halo[2, e] else 0) if halo[0, e] else (5 if halo[2, e] else 4)]
+            vals[e] = sp[(0 if halo[1, e] else B0) + (i1[e] * t2 + i2[e]) * w0 + x[0, e] % w0]
+        for e in np.flatnonzero(sel1):
+            sp = staged[2 if halo[1, e] else 6]
+            vals[e] = sp[(0 if halo[2, e] else B1) + (i2[e] * t0 + x[0, e] - w0) * w1
+                         + x[1, e] % w1]
+        for e in np.flatnonzero(sel2):
+            vals[e] = staged[3][((x[0, e] - w0) * t1 + x[1, e] - w1) * w2 + x[2, e]]
+        out[tuple(a - 1 for a in q)] = vals.reshape(tuple(h))
+    return out
+
+
+RULE_CASES = FETCH_CASES + [("jacobi2d5p", (16, 8, 8), (8, 4, 2)),
+                            ("smith-waterman-3seq", (9, 8, 8), (3, 4, 4))]
+RULE_IDS = IDS + ["t2=w2", "w0=3"]
+
+
+def _random_facets(name, space, tile, seed=3):
+    rng = np.random.default_rng(seed)
+    pipe = CFAPipeline(get_program(name), IterSpace(space), Tiling(tile), device="cpu")
+    return {k: torch.from_numpy(rng.normal(size=pipe.facet_shape(k)))
+            for k in pipe.specs}  # any values: every slot is addressable
 
 
 @pytest.mark.parametrize("storage", ["redundant", "irredundant"])
-@pytest.mark.parametrize("name,space,tile", FETCH_CASES + [
-    ("jacobi2d5p", (16, 8, 8), (8, 4, 2))], ids=IDS + ["t2=w2"])
+@pytest.mark.parametrize("name,space,tile", RULE_CASES, ids=RULE_IDS)
 def test_kernel_rule_equals_plain_version(name, space, tile, storage):
-    rng = np.random.default_rng(3)
-    pipe = CFAPipeline(get_program(name), IterSpace(space), Tiling(tile), device="cpu")
-    facets = {k: torch.from_numpy(rng.normal(size=pipe.facet_shape(k)))
-              for k in pipe.specs}  # any values: every slot is addressable
+    facets = _random_facets(name, space, tile)
     geo = fetch_mod.fetch_geometry(name, facets, space, tile, storage)
     want = fetch_interior_halos_ref(name, facets, space, tile, storage=storage)
-    np.testing.assert_array_equal(_kernel_rule(facets, geo, storage), want.numpy())
+    _assert_bit_equal(torch.from_numpy(_kernel_rule(facets, geo, storage)), want.numpy())
+
+
+@pytest.mark.parametrize("storage", ["redundant", "irredundant"])
+@pytest.mark.parametrize("name,space,tile", RULE_CASES, ids=RULE_IDS)
+def test_bursts_are_merged_blocks_that_cover_the_plain_reads(name, space, tile, storage):
+    """Per tile: 4 (redundant) or 7 (irredundant) bursts; a slot's first
+    block is the facet's block of tile q + d, a merged pair's second block
+    follows it in the facet array, and every facet element the plain
+    version reads for the tile lies inside a burst of the tile."""
+    facets = _random_facets(name, space, tile)
+    geo = fetch_mod.fetch_geometry(name, facets, space, tile, storage)
+    ids, base = {}, 1
+    for k in range(3):
+        n = facets[k].numel()
+        ids[k] = torch.arange(base, base + n).reshape(facets[k].shape)
+        base += n
+    read = fetch_interior_halos_ref(name, ids, space, tile, storage=storage)
+    offsets = np.cumsum([1] + [facets[k].numel() for k in range(3)])
+    for q in _tiles(geo):
+        bursts = _bursts(facets, geo, storage, q)
+        assert len(bursts) == (7 if storage == "irredundant" else 4)
+        for (k, slot_base, start, n), (k2, d, pair) in zip(bursts, SLOTS):
+            first = tuple(a + b for a, b in zip(q, d))
+            assert k == k2 and slot_base == _block_start(facets, k, first)
+            block = facets[k][0, 0, 0].numel()
+            if start + n > block:  # a merged pair: the next block along its axis
+                nxt = tuple(a + (i == pair) for i, a in enumerate(first))
+                assert slot_base + block == _block_start(facets, k, nxt)
+                assert start + n == 2 * block
+        need = np.unique(read[tuple(a - 1 for a in q)].numpy())
+        need = need[need > 0]
+        covered = np.zeros(need.shape, bool)
+        for k, slot_base, start, n in bursts:
+            lo = offsets[k] + slot_base + start
+            covered |= (need >= lo) & (need < lo + n)
+        assert covered.all(), f"tile {q}: {int((~covered).sum())} elements read outside the bursts"
+
+
+def test_burst_plan_at_the_cut_cell():
+    """The cut irredundant cell's tile (16, 256, 2), w (1, 2, 2): 7 bursts,
+    ~39 KiB staged per CTA in float32 (five CTAs per SM), bulk copies for
+    every burst of 16-byte aligned facets."""
+    name, space, tile = "jacobi2d5p", (64, 1024, 1024), (16, 256, 2)
+    pipe = CFAPipeline(get_program(name), IterSpace(space), Tiling(tile), device="cpu")
+    facets = {k: torch.empty(pipe.facet_shape(k), device="meta") for k in pipe.specs}
+    geo = fetch_mod.fetch_geometry(name, facets, space, tile, "irredundant")
+    slots, smem = fetch_mod.burst_plan(geo, facets, "irredundant", 4)
+    assert slots[:, 7].tolist() == [516, 516, 128, 8192, 4, 516, 64]
+    assert smem == sum(-(-n * 4 // 16) * 16 for n in slots[:, 7].tolist()) == 39744
+    assert 5 * (smem + 1024) <= 233472
+    assert all(n * 4 % 16 == 0 for n in slots[:, 7].tolist())
+    assert fetch_mod.burst_plan(geo, facets, "redundant", 8)[1] == 74816
+
+
+def test_burst_paths_word_loads_and_reads_in_place():
+    """Bursts whose start or size is not a multiple of 16 bytes take word
+    loads (w0 = 3 makes facet_1's tails 36 bytes); a tile whose bursts exceed
+    shared memory stages nothing and reads them in place."""
+    name, space, tile = "smith-waterman-3seq", (9, 8, 8), (3, 4, 4)
+    facets = _random_facets(name, space, tile)
+    geo = fetch_mod.fetch_geometry(name, facets, space, tile, "irredundant")
+    paths = fetch_mod.burst_paths(geo, {k: v.float() for k, v in facets.items()}, "irredundant")
+    assert paths["word"] > 0 and paths["bulk"] > 0 and paths["staged_bytes"] > 0
+    name, space, tile = "jacobi2d5p", (128, 1024, 16), (64, 512, 8)
+    pipe = CFAPipeline(get_program(name), IterSpace(space), Tiling(tile), device="cpu")
+    facets = {k: torch.empty(pipe.facet_shape(k), device="meta") for k in pipe.specs}
+    geo = fetch_mod.fetch_geometry(name, facets, space, tile, "redundant")
+    slots, smem = fetch_mod.burst_plan(geo, facets, "redundant", 4)
+    assert smem == 0 and slots[3, 7] * 4 > fetch_mod.MAX_STAGED
 
 
 def test_strides_come_from_the_facet_specs():
@@ -216,9 +332,8 @@ def test_strides_come_from_the_facet_specs():
     pipe = CFAPipeline(get_program(name), IterSpace(space), Tiling(tile), device="cpu")
     facets = pipe.init_facets(torch.float32)
     geo = fetch_mod.fetch_geometry(name, facets, space, tile, "redundant")
-    s = fetch_mod._strides(geo.specs, facets)
-    assert s.dtype == np.int64 and s.shape == (21,)
-    base, outer = s[:3], s[3:12].reshape(3, 3)
+    base, outer = fetch_mod._strides(geo.specs, facets)
+    assert base.dtype == outer.dtype == np.int64 and outer.shape == (3, 3)
     # facet_0 (nt0+1, nt2, nt1, t1, t2, w0): the virtual row is one q0 stride
     assert base.tolist() == [outer[0, 0], 0, 0]
     w0 = get_program(name).widths[0]
@@ -337,7 +452,8 @@ def test_cuda_facets_launch_the_kernel_never_the_plain_version(monkeypatch):
 
 
 def test_c_entry_point_matches_the_ctypes_binding():
-    """The wrapper's argtypes and the .cu entry point agree in arity."""
+    """The wrapper's argtypes and the .cu entry point agree in arity (the
+    geometry and the burst plan travel as two arrays)."""
     src = (SRC / "facet_fetch" / "csrc" / "facet_fetch.cu").read_text()
     sig = re.search(r'extern "C" int facet_fetch\((.*?)\)\s*\{', src, re.S).group(1)
     n_params = len([p for p in sig.split(",") if p.strip()])
