@@ -11,10 +11,13 @@ result line unless every phase passed):
                power limit;
 2.  build    — compiles every kernel source from the checkout (one ``nvcc``
                per source, started together) and prints ptxas's register /
-               shared-memory lines;
+               shared-memory lines and the number of HMMA instructions in
+               ``ssd_scan``'s SASS (``cuobjdump -sass``), which must be > 0;
 3.  kernels  — ``stencil_tiles`` against its plain PyTorch version on random
                inputs, every program of ``execute_tiles`` in float32 and
-               float64; the difference must be 0 (bit-exact by design);
+               float64, by its launch plan and forced into every cluster of
+               2..8 CTAs its tile splits into; the difference must be 0
+               (bit-exact by design);
 4.  fetch    — ``facet_fetch`` against its plain version on facets swept on
                the card (``jacobi2d5p``, ``jacobi2d9p``, ``gaussian``), both
                storages, float32 and float64; the difference must be 0, and
@@ -76,7 +79,11 @@ result line unless every phase passed):
                ports / ``sharded``; facets equal the ``reference`` backend;
     halo-quantize — ``compile(..., n_ports=2, halo_quantize=True)`` on the
                card equals the same call on the CPU bit for bit;
-10. timing   — each kernel at its path's shapes on device time: ``iters``
+10. timing   — each kernel at its path's shapes (the stencil at the main
+               wave, the paper's 64^3 tile, the irredundant wave and the
+               dataflow path's single tile, each with its launch plan and
+               a sweep over every cluster size the tile takes) on
+               device time: ``iters``
                calls captured once in a CUDA graph and replayed between CUDA
                events, median of 5 windows (a call that cannot be captured
                is timed from the profiler's kernel rows, and its line says
@@ -129,7 +136,10 @@ result line unless every phase passed):
                ``decode_attention``, ``scaled_dot_product_attention`` over
                the deblockified cache with the same mask as a yardstick;
                the attention's launch plan at the tick (CTAs, working CTAs,
-               shared memory per CTA);
+               shared memory per CTA); ``ssd_scan``'s launch plan at B 1 and
+               4, its bound on the tensor-core route beside the FP32-pipe
+               figure, and one call captured in a CUDA graph, which must
+               equal the eager call bit for bit;
 15. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases run in the order device, build, kernels, fetch, small, storage,
@@ -165,6 +175,8 @@ SEED = 0
 #: the H100 SXM's published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+#: dense bf16 on the tensor cores (the same data sheet)
+PEAK_BF16_TC_FLOPS = 989e12
 MAIN_PROGRAM = "jacobi2d5p"
 MAIN_SPACE = (256, 1024, 1024)
 #: the compressed path's space: the full grid, the time axis cut (it runs no
@@ -203,6 +215,7 @@ ATTN_CASES = [  # B, Hq, Hkv, D, S, bs, lengths (None: seeded in 1..S)
 SSD_CASES = [  # B, T, H, P, N, chunk; phase 12 adds the serve stream's short prompts
     (2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32), (2, 96, 8, 8, 4, 32),  # the tests'
     (1, 1024, 32, 64, 128, 128), (4, 1024, 32, 64, 128, 128),  # mamba2-370m
+    (1, 256, 2, 64, 256, 128),  # the largest state: one staging stage
 ]
 #: kernel-vs-plain limits, (rtol, atol): |got - want| <= atol + rtol |want|.  A
 #: bfloat16 output may round the other way from the plain version's, one unit
@@ -288,12 +301,23 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 log(f"[build] {name}: {line.strip()}")
+    # ssd_scan's bf16 chunk products run on the tensor cores: HMMA in its SASS
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._library_path("ssd_scan"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    hmma = sum(1 for line in sass.splitlines() if "HMMA" in line)
+    log(f"[build] ssd_scan: {hmma} HMMA instructions in its SASS ({cuobjdump} -sass)")
+    if hmma == 0:
+        raise AssertionError("ssd_scan's SASS holds no HMMA: its products are not on the "
+                             "tensor cores")
 
 
 def phase_kernels(device) -> float:
-    """Every program, both dtypes: the kernel against its plain version."""
+    """Every program, both dtypes: the kernel against its plain version, by
+    its launch plan and by every cluster the tile splits into."""
     from repro_torch.core.cfa.programs import get_program
     from repro_torch.kernels.stencil import execute_tiles, execute_tiles_ref
+    from repro_torch.kernels.stencil import stencil
 
     rng = np.random.default_rng(SEED)
     worst = 0.0
@@ -304,14 +328,28 @@ def phase_kernels(device) -> float:
             halos = rng_tensor(rng, shape, dtype, device)
             got = execute_tiles(name, halos, tile)
             want = execute_tiles_ref(name, halos, tile)
+            # every split of the tile into a cluster (these shapes plan one CTA)
+            forced = {}
+            for k in range(2, stencil.MAX_CLUSTER + 1):
+                try:
+                    plan = stencil.launch_plan(name, batch, tile, dtype, k=k)
+                except ValueError:
+                    continue
+                out = torch.empty_like(want)
+                stencil._launch(stencil._check(name, halos, tile, out), halos, out, plan)
+                forced[k] = out
             torch.cuda.synchronize()
             err = max_abs(got, want)
+            errs = {k: max_abs(out, want) for k, out in forced.items()}
             log(f"[kernels] stencil_tiles {name} tile={tile} B={batch} "
-                f"{str(dtype)[6:]}: max|kernel-plain| = {err!r}")
-            if not (torch.isfinite(got).all() and err == 0.0):
+                f"{str(dtype)[6:]}: max|kernel-plain| = {err!r} (planned "
+                f"k={stencil.launch_plan(name, batch, tile, dtype).k}); forced clusters "
+                f"k: max|kernel-plain| {errs}")
+            if not (torch.isfinite(got).all() and err == 0.0
+                    and all(bit_equal(out, want) for out in forced.values())):
                 raise AssertionError(f"stencil_tiles {name} {dtype}: differs "
-                                     f"from its plain version by {err!r}")
-            worst = max(worst, err)
+                                     f"from its plain version by {err!r}, forced {errs}")
+            worst = max(worst, err, *errs.values())
     return worst
 
 
@@ -795,19 +833,29 @@ def _stencil_bound(name: str, halos: torch.Tensor, tile) -> tuple[float, str]:
 
 
 def phase_timing(device, main: dict, irr: dict) -> list[dict]:
-    from repro_torch.kernels.stencil import execute_tiles, execute_tiles_ref
+    from repro_torch.kernels.stencil import execute_tiles, execute_tiles_ref, launch_plan
+    from repro_torch.kernels.stencil import stencil
+    from repro_torch.kernels.stencil.stencil import THREADS as stencil_threads
 
     rng = np.random.default_rng(SEED)
     w = main["widths"]
     shapes = [("main path (autotuned)", main["tile"], main["largest_wave"]),
               ("paper 64^3 tile", (64, 64, 64), main["largest_wave"]),
-              ("irredundant path (autotuned)", irr["tile"], irr["largest_wave"])]
+              ("irredundant path (autotuned)", irr["tile"], irr["largest_wave"]),
+              ("dataflow path, one tile per launch", main["tile"], 1)]
     rows = []
     for label, tile, batch in shapes:
+        plan = launch_plan(MAIN_PROGRAM, batch, tile, torch.float32)
+        log(f"[timing] stencil_tiles launch plan at {label}, B={batch} tile {tuple(tile)}: "
+            f"split axis {plan.split} into k={plan.k} strips of {plan.strip} rows (cluster "
+            f"{plan.k}), {plan.ctas} CTAs of {stencil_threads} threads, a ring of "
+            f"{plan.ring} planes of {plan.slot} ({plan.ahead} loaded ahead), {plan.smem} B "
+            f"of shared memory per CTA ({plan.halo_parts} halo-part elements), "
+            f"{plan.ctas_per_sm} CTAs per SM")
         halos = rng_tensor(rng, (batch, *(wa + ta for wa, ta in zip(w, tile))),
                            torch.float32, device)
-        err = max_abs(execute_tiles(MAIN_PROGRAM, halos, tile),
-                      execute_tiles_ref(MAIN_PROGRAM, halos, tile))
+        want = execute_tiles_ref(MAIN_PROGRAM, halos, tile)
+        err = max_abs(execute_tiles(MAIN_PROGRAM, halos, tile), want)
         m = _measure(lambda: execute_tiles(MAIN_PROGRAM, halos, tile), 100)
         plain_ms = _time_ms(lambda: execute_tiles_ref(MAIN_PROGRAM, halos, tile), 10, warmup=2)[0]
         bound_ms, bound_by = _stencil_bound(MAIN_PROGRAM, halos, tile)
@@ -819,7 +867,21 @@ def phase_timing(device, main: dict, irr: dict) -> list[dict]:
             raise AssertionError(f"kernel differs from plain at {label}: {err!r}")
         rows.append({"label": label, "ms": m["ms"], "host_ms": m["host_ms"],
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "err": err})
+                     "err": err, "batch": batch, "tile": tuple(tile)})
+        # the split sweep: every cluster size the tile takes, timed alike
+        out, sweep = torch.empty_like(want), []
+        call = stencil._check(MAIN_PROGRAM, halos, tile, out)
+        for k in range(1, stencil.MAX_CLUSTER + 1):
+            try:
+                kplan = launch_plan(MAIN_PROGRAM, batch, tile, torch.float32, k=k)
+            except ValueError:
+                continue
+            ms = _device_ms(lambda: stencil._launch(call, halos, out, kplan), 50)[0]
+            sweep.append(f"k={k} {ms:.6f}")
+            if not bit_equal(out, want):
+                raise AssertionError(f"stencil_tiles at {label} with k={k} differs from plain")
+        log(f"[timing] stencil_tiles split sweep at {label} (device ms, graph): "
+            f"{', '.join(sweep)}; planned k={plan.k}")
     return rows
 
 
@@ -1653,14 +1715,20 @@ def _attn_bound(lengths: torch.Tensor, Hq: int, Hkv: int, D: int, esize: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _ssd_bound(B: int, T: int, H: int, P: int, N: int, L: int, esize: int) -> tuple[float, str]:
-    """x, loga, B, C, y and the state moved once, against 2 L^2 N flops per
-    chunk plus 2 L^2 P + 4 L P N per head and chunk at the f32 peak."""
+def _ssd_bound(B: int, T: int, H: int, P: int, N: int, L: int,
+               esize: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, the f32-pipe operations figure): x, loga,
+    B, C, y and the state moved once, against 2 L^2 N flops per chunk plus
+    2 L^2 P + 4 L P N per head and chunk — at the bf16 tensor-core peak for
+    a bf16 call (the kernel's route), at the f32 peak for an f32 call; the
+    third value is always the flops at the f32 peak (the FP32-pipe route's
+    bound)."""
     nbytes = (2 * B * T * H * P + 2 * B * T * N) * esize + B * T * H * 4 + B * H * P * N * 4
     flops = B * (T // L) * (2 * L * L * N + H * (2 * L * L * P + 4 * L * P * N))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_f32 = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = flops / PEAK_BF16_TC_FLOPS * 1e3 if esize == 2 else t_f32
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_f32,)
 
 
 def phase_serve_timing(device, runs: dict) -> dict:
@@ -1672,6 +1740,8 @@ def phase_serve_timing(device, runs: dict) -> dict:
                                                      decode_attention_ref)
     from repro_torch.kernels.block_attention.block_attention import launch_plan
     from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_scan
+    from repro_torch.kernels.ssd.ssd import P_BLOCK as SSD_P_BLOCK
+    from repro_torch.kernels.ssd.ssd import launch_plan as ssd_plan
 
     rng = np.random.default_rng(SEED)
     rows = {}
@@ -1730,15 +1800,39 @@ def phase_serve_timing(device, runs: dict) -> dict:
         wy, wst = ssd_chunked_ref(x, loga, Bm, C, L)
         err = max(max_abs(y, wy), max_abs(st, wst))
         ex = max(_excess(y, wy, SSD_TOL[torch.bfloat16]), _excess(st, wst, STATE_TOL))
+        plan = ssd_plan(Bb, T, H, P, N, L, torch.bfloat16)
+        log(f"[timing] ssd_scan launch plan at B={Bb} T={T}: grid {plan.grid} = {plan.ctas} CTAs "
+            f"of {plan.threads} threads ({SSD_P_BLOCK} state rows each), route {plan.route}, chunk "
+            f"padded to {plan.lp}, state to {plan.np_}, {plan.stages} staging stage(s), "
+            f"{plan.smem} B of shared memory per CTA, {plan.ctas_per_sm} CTA(s) per SM")
         m = _measure(lambda: ssd_scan(x, loga, Bm, C, chunk=L), 20)
         plain_ms = _time_ms(lambda: ssd_chunked_ref(x, loga, Bm, C, L), 5, warmup=2)[0]
-        bound_ms, bound_by = _ssd_bound(Bb, T, H, P, N, L, 2)
+        bound_ms, bound_by, f32_ms = _ssd_bound(Bb, T, H, P, N, L, 2)
         log(f"[timing] ssd_scan mamba2-370m prefill: B={Bb} T={T} H={H} P={P} N={N} chunk={L} "
             f"bfloat16: kernel {_fmt(m)}; plain {plain_ms:.6f} ms (eager CUDA events); bound "
-            f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / m['ms']:.1%} of bound; "
-            f"max|kernel-plain| {err!r} ({ex:.3f} x the limit)")
+            f"{bound_ms:.6f} ms ({bound_by}; tensor-core route), {bound_ms / m['ms']:.1%} of "
+            f"bound; the FP32-pipe operations bound {f32_ms:.6f} ms; max|kernel-plain| {err!r} "
+            f"({ex:.3f} x the limit)")
         if not ex <= 1.0:
             raise AssertionError(f"ssd_scan differs from plain at the path shape: {err!r}")
+        if Bb == 1:  # one call captured in a CUDA graph equals the eager call
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                ssd_scan(x, loga, Bm, C, chunk=L)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph):
+                gy, gst = ssd_scan(x, loga, Bm, C, chunk=L)
+            graph.replay()
+            torch.cuda.synchronize()
+            same = bit_equal(gy, y) and bit_equal(gst, st)
+            log(f"[timing] ssd_scan B=1: one call captured in a CUDA graph and replayed == the "
+                f"eager call bit for bit: {same}")
+            if not same:
+                raise AssertionError("ssd_scan under graph replay differs from the eager call")
+            del graph
         if Bb == 1:
             rows["ssd_scan"] = {"ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": plain_ms,
                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,

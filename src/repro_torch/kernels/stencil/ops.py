@@ -11,16 +11,20 @@ output tensor.  No new kernel source: the work of every shard is kernel 1's.
 
 What bounds it on the card is what bounds kernel 1 — memory traffic — and
 the ports add concurrency, not bandwidth: ``n_ports`` launches of ``m``
-tiles each fill the same CTAs one launch of ``B`` tiles fills, plus one
-launch overhead per port.  On the CPU the shards run the plain version
-(``execute_tiles_ref``) in port order.  A launch error raises; nothing falls
-back.  ``execute_tiles_sharded.launches`` counts the per-port kernel
-launches it makes.
+tiles each fill the clusters one launch of ``B`` tiles fills, plus one
+launch overhead per port.  What bounded the call itself was the host: each
+port re-entered ``execute_tiles``, which checked and packed the same
+arguments again.  The call is checked and packed once (``_check``), then
+each port only launches (``_launch``).  On the CPU the shards run the plain
+version (``execute_tiles_ref``) in port order.  A launch error raises;
+nothing falls back.  ``execute_tiles_sharded.launches`` counts the per-port
+kernel launches it makes.
 """
 from __future__ import annotations
 
 import torch
 
+from . import stencil as _stencil
 from .ref import execute_tiles_ref
 from .stencil import execute_tiles
 
@@ -47,18 +51,20 @@ def execute_tiles_sharded(
         )
     if halos.device != mesh.device:
         raise ValueError(f"halos are on {halos.device}, the port mesh on {mesh.device}")
-    tile = tuple(int(t) for t in tile)
+    call = _stencil._check(program_name, halos, tile, None)
     m = B // n
-    out = torch.empty((B, *tile), dtype=halos.dtype, device=halos.device)
+    out = torch.empty((B, *call.tile), dtype=halos.dtype, device=halos.device)
     on_card = halos.device.type == "cuda"
 
     def shard(p: int) -> None:
         if m == 0:
             return
         sl = slice(p * m, (p + 1) * m)
-        execute_tiles(program_name, halos[sl], tile, out=out[sl])
         if on_card:
+            _stencil._launch(call, halos[sl], out[sl])
             execute_tiles_sharded.launches += 1
+        else:
+            out[sl] = execute_tiles_ref(call.program, halos[sl], call.tile)
 
     mesh.run(shard, shared=(halos, out))
     return out

@@ -13,10 +13,20 @@ and handed to both packages:
 * the port's sequential oracle against the reference's; chunk invariance
   (8 against 64); ``ssd_decode_step`` against the reference's and along the
   scan's trajectory;
-* the kernel's loop (serial cumsum, the causal half of the decay matrix
-  only, state update after y), transliterated to numpy from
+* the float32 kernel's loop (serial cumsum, the causal half of the decay
+  matrix only, state update after y), transliterated to numpy from
   ``csrc/ssd_scan.cu``, against the plain version — also where the masked
   half of exp(l_t - l_s) overflows;
+* the bfloat16 kernel's schedule, transliterated to numpy: 16 state rows per
+  CTA, chunks in order, L padded to a multiple of 16, the decay factored per
+  16-row block (exp only on the diagonal block), the f32 operands W, x o wout
+  and S split into hi/lo bf16 pairs (the tensor cores' two products) —
+  against the plain version and the reference's Pallas kernel on bf16 inputs,
+  ragged chunks (77, 8) and an overflowing decay included: y within one bf16
+  rounding (2^-7 |want| + 1e-3), the state within 1e-4 + 1e-4 |want|; and the
+  control, one bf16 rounding of x o wout, which must break the state limit;
+* ``launch_plan`` at the serve shapes (>= 128 CTAs at batch 1, shared memory
+  within a block's 232448 B) and what it rejects;
 * ``T % chunk != 0`` and the other rejections, the launch counter and the C
   entry point's arity.
 """
@@ -173,6 +183,149 @@ def test_the_kernels_loop_matches_the_plain_version(B, T, H, P, N, L, decay):
     assert np.isfinite(ky).all() and torch.isfinite(y).all()
     np.testing.assert_allclose(ky, y.numpy(), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(ks, s.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _bf16(a) -> np.ndarray:
+    """f32 -> bf16 (round to nearest even, as __float2bfloat16_rn) -> f32."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(torch.bfloat16).float().numpy()
+
+
+def _mma_schedule(x, loga, Bm, C, L, split=True):
+    """numpy transliteration of ``ssd_scan_mma_kernel``: per (row, head,
+    16-row block of p) CTA, chunks in order; the chunk padded to Lp = 16k
+    rows (zero x, B, C and log-decay); G = C B^T; W = G o decay with the
+    decay factored as R[t] M[tb][jj] Q[s] below the diagonal 16x16 block and
+    exp(l_t - l_s), s <= t only, on it; W, S and x o wout split into bf16
+    hi/lo halves (``split=False``: x o wout rounded once, the control); y =
+    W x + E[t] C S^T; S <- exp(l_L) S + (x o wout)^T B.  Any exp overflow
+    raises."""
+    Bb, T, H, P = x.shape
+    N = Bm.shape[-1]
+    nblk = -(-L // 16)
+    Lp = 16 * nblk
+    t_idx = np.arange(Lp)
+    blk = t_idx // 16
+    y = np.zeros((Bb, T, H, P), np.float32)
+    state = np.zeros((Bb, H, P, N), np.float32)
+    with np.errstate(over="raise", invalid="raise"):
+        for b in range(Bb):
+            for h in range(H):
+                for p0 in range(0, P, 16):
+                    pw = min(16, P - p0)
+                    S = np.zeros((16, N), np.float32)
+                    for c0 in range(0, T, L):
+                        xs = np.zeros((Lp, 16), np.float32)
+                        xs[:L, :pw] = x[b, c0:c0 + L, h, p0:p0 + pw]
+                        Bc = np.zeros((Lp, N), np.float32)
+                        Cc = np.zeros((Lp, N), np.float32)
+                        la = np.zeros(Lp, np.float32)
+                        Bc[:L], Cc[:L] = Bm[b, c0:c0 + L], C[b, c0:c0 + L]
+                        la[:L] = loga[b, c0:c0 + L, h]
+                        lcum = np.cumsum(la, dtype=np.float32)
+                        ltot = lcum[L - 1]
+                        anchor = lcum[16 * np.arange(nblk) + 15]
+                        R = np.ones(Lp, np.float32)
+                        R[16:] = np.exp(lcum[16:] - anchor[blk[16:] - 1])
+                        Q = np.exp(anchor[blk] - lcum).astype(np.float32)
+                        E = np.exp(lcum).astype(np.float32)
+                        G = Cc @ Bc.T
+                        W = np.zeros((Lp, Lp), np.float32)
+                        for tb in range(nblk):
+                            rows = slice(16 * tb, 16 * tb + 16)
+                            for jj in range(tb):
+                                cols = slice(16 * jj, 16 * jj + 16)
+                                m = np.float32(np.exp(anchor[tb - 1] - anchor[jj]))
+                                W[rows, cols] = (G[rows, cols] * (R[rows] * m)[:, None]
+                                                 * Q[cols][None, :])
+                            tt, ss = np.meshgrid(t_idx[rows], t_idx[rows], indexing="ij")
+                            low = ss <= tt
+                            dec = np.zeros((16, 16), np.float32)
+                            dec[low] = np.exp(lcum[tt[low]] - lcum[ss[low]])
+                            W[rows, rows] = np.where(low, G[rows, rows] * dec, 0)
+                        Wh, Sh = _bf16(W), _bf16(S)
+                        Wl, Sl = _bf16(W - Wh), _bf16(S - Sh)
+                        yc = (Wh @ xs + Wl @ xs) + E[:, None] * (Cc @ Sh.T + Cc @ Sl.T)
+                        y[b, c0:c0 + L, h, p0:p0 + pw] = yc[:L, :pw]
+                        xw = xs * np.exp(ltot - lcum).astype(np.float32)[:, None]
+                        xh = _bf16(xw)
+                        xl = _bf16(xw - xh) if split else np.zeros_like(xw)
+                        S = np.float32(np.exp(ltot)) * S + (xh.T @ Bc + xl.T @ Bc)
+                    state[b, h, p0:p0 + pw] = S[:pw]
+    return y, state
+
+
+def _excess(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 within the limit."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
+Y_BF16_TOL = (2.0 ** -7, 1e-3)  # one bf16 output rounding
+STATE_TOL = (1e-4, 1e-4)
+
+
+def _bf16_inputs(seed, B, T, H, P, N, decay):
+    x, loga, Bm, C = _inputs(seed, B, T, H, P, N, decay=decay)
+    return _bf16(x), loga, _bf16(Bm), _bf16(C)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,L,decay", [
+    (1, 154, 2, 16, 16, 77, 0.5),  # a ragged chunk (the serve stream's short prompts)
+    (2, 24, 2, 8, 4, 8, 0.5),      # the smoke configs' chunk; P and N below one block
+    (1, 256, 2, 4, 8, 128, 3.0),   # exp(l_t - l_s) overflows in the masked half
+    (1, 128, 3, 32, 32, 64, 0.5),  # two p-blocks per head
+])
+def test_the_bf16_kernels_schedule_matches_the_plain_version(B, T, H, P, N, L, decay):
+    x, loga, Bm, C = _bf16_inputs(23, B, T, H, P, N, decay)
+    y, s = _mma_schedule(x, loga, Bm, C, L)
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    wy, ws = ssd_scan(*_torch(x, loga, Bm, C, torch.bfloat16), chunk=L)
+    assert _excess(_bf16(y), wy.float().numpy(), *Y_BF16_TOL) <= 1.0
+    assert _excess(s, ws.numpy(), *STATE_TOL) <= 1.0
+    jy, js = jax_ssd_scan(*(jnp.asarray(a, jnp.bfloat16) if a is not loga else jnp.asarray(a)
+                            for a in (x, loga, Bm, C)), chunk=L)
+    assert _excess(_bf16(y), np.asarray(jy, np.float32), *Y_BF16_TOL) <= 1.0
+    assert _excess(s, np.asarray(js), *STATE_TOL) <= 1.0
+
+
+@pytest.mark.parametrize("B,T,H,P,N,L", [(1, 256, 2, 16, 128, 128), (2, 24, 2, 8, 4, 8)])
+def test_one_bf16_rounding_of_x_wout_breaks_the_state_limit_and_the_split_meets_it(
+        B, T, H, P, N, L):
+    x, loga, Bm, C = _bf16_inputs(29, B, T, H, P, N, 0.5)
+    _, ws = ssd_chunked_ref(*_torch(x, loga, Bm, C, torch.bfloat16), L)
+    _, split = _mma_schedule(x, loga, Bm, C, L)
+    _, once = _mma_schedule(x, loga, Bm, C, L, split=False)
+    assert _excess(split, ws.numpy(), *STATE_TOL) <= 0.5
+    assert _excess(once, ws.numpy(), *STATE_TOL) > 2.0
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_launch_plan_at_the_serve_shapes(B):
+    """mamba2-370m's prefill: H 32, P 64, N 128, chunk 128 (and a short prompt)."""
+    plan = ssd_mod.launch_plan(B, 1024, 32, 64, 128, 128, torch.bfloat16)
+    assert plan.route == "mma" and plan.grid == (4, 32, B) and plan.ctas == 128 * B
+    assert plan.smem <= ssd_mod.MAX_SMEM and plan.stages == 2 and plan.ctas_per_sm >= 1
+    assert plan.ctas == plan.grid[0] * 32 * B and ssd_mod.P_BLOCK * plan.grid[0] >= 64
+    assert (plan.lp, plan.np_) == (128, 128)
+    short = ssd_mod.launch_plan(B, 77, 32, 64, 128, 77, torch.bfloat16)
+    assert short.lp == 80 and short.ctas >= 128 and short.smem <= ssd_mod.MAX_SMEM
+    f32 = ssd_mod.launch_plan(B, 1024, 32, 64, 128, 128, torch.float32)
+    assert f32.route == "fma" and f32.grid == plan.grid and f32.smem <= ssd_mod.MAX_SMEM
+    # the largest state size takes one staging stage
+    big = ssd_mod.launch_plan(1, 128, 1, 64, ssd_mod.MAX_STATE, 128, torch.bfloat16)
+    assert big.stages == 1 and big.smem <= ssd_mod.MAX_SMEM
+
+
+def test_launch_plan_rejects_what_the_kernel_rejects():
+    with pytest.raises(ValueError, match="chunk 129 outside"):
+        ssd_mod.launch_plan(1, 129, 2, 16, 16, 129)
+    with pytest.raises(ValueError, match="state size N=257"):
+        ssd_mod.launch_plan(1, 128, 2, 16, 257, 128)
+    with pytest.raises(ValueError, match="<= 65535"):
+        ssd_mod.launch_plan(1, 128, 70000, 16, 16, 128)
+    with pytest.raises(TypeError, match="no ssd_scan route"):
+        ssd_mod.launch_plan(1, 128, 2, 16, 16, 128, torch.float16)
 
 
 def test_plain_version_is_the_wrapper_on_cpu_and_does_not_count():
