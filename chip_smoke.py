@@ -79,6 +79,28 @@ result line unless every phase passed):
                ports / ``sharded``; facets equal the ``reference`` backend;
     halo-quantize — ``compile(..., n_ports=2, halo_quantize=True)`` on the
                card equals the same call on the CPU bit for bit;
+    calibrate — ``cfa.calibrate(H100_HBM3, device="cuda")`` over its default
+               sweep (6 burst lengths x 3 counts of synthetic schedules, and
+               ``jacobi2d5p`` and ``heat3d`` under the three storages at 1
+               and 2 ports), then over ``PRESET_LENGTHS`` (the default
+               lengths and bursts of 1, 8 and 64 MiB: the fit the committed
+               preset copies): prints the samples, the noise, the committed
+               preset's and the fitted ``setup_s``, ``peak_bytes_per_s`` and
+               port factors, the worst plan error of each, every plan row
+               and the card's name and power limit; the fitted parameters
+               must be finite and positive, every plan row present and the
+               record must survive its JSON round trip (no wall-clock
+               threshold);
+    h100-target — ``jacobi2d5p`` at (32, 1024, 1024) under the
+               ``h100-hbm3`` target: ``cfa.autotune(..., score="measured",
+               measure_top=3)`` on the card (its key beside ``axi-zc706``'s
+               choice), ``cfa.compile(..., target="h100-hbm3", layout=<that
+               decision>, verify=True)`` with no ERROR diagnostic, a run on
+               the ``cuda`` backend (launches must equal the waves, facets
+               must equal the ``reference`` backend bit for bit), the same
+               run at ``axi-zc706``'s layout for its wall, then
+               ``report(measured=True)`` and the top rows of
+               ``runtime_report()``;
 10. timing   — each kernel at its path's shapes (the stencil at the main
                wave, the paper's 64^3 tile, the irredundant wave and the
                dataflow path's single tile, each with its launch plan and
@@ -144,8 +166,8 @@ result line unless every phase passed):
 
 The phases run in the order device, build, kernels, fetch, small, storage,
 attn-kernel, ssd-kernel, main, kernels-sharded, sharded, dataflow,
-irredundant, fetch-sharded, compressed, distribute, halo-quantize, serve,
-timing (stencil, fetch, 1s/2s), serve timing: every profiler window that
+irredundant, fetch-sharded, compressed, distribute, halo-quantize,
+calibrate, h100-target, serve, timing (stencil, fetch, 1s/2s), serve timing: every profiler window that
 reads host calls and kernels together runs before the timing phases'
 kernel-only windows and graph captures.
 ``--steps`` cuts the time axis of the full-width stencil paths; by
@@ -186,6 +208,13 @@ COMPRESSED_SPACE = (32, 1024, 1024)
 #: that the whole script stays within half its time limit on a slow host (its
 #: host-bound copy_in took about a fifth of the run at 256 steps)
 IRREDUNDANT_SPACE = (64, 1024, 1024)
+#: the h100-target path's space: the main path's widths, the time axis cut
+H100_SPACE = (32, 1024, 1024)
+#: the burst lengths of the sweep the H100_HBM3 preset is fitted from: the
+#: default sweep's (up to 32768 elements, 128 KiB: its byte term is far below
+#: one launch) and bursts of 1, 8 and 64 MiB, whose copy time the host clock
+#: resolves
+PRESET_LENGTHS = (1, 8, 64, 512, 4096, 32768, 262144, 2097152, 16777216)
 SMALL_CASES = [  # tests/test_passes.py's CASES, 3-D rows
     ("jacobi2d5p", (8, 8, 8), (4, 4, 4)),
     ("jacobi2d9p", (8, 8, 8), (4, 4, 4)),
@@ -1132,6 +1161,131 @@ def phase_halo_quantize(device) -> None:
                 f"{lossy!r}")
 
 
+def phase_calibrate(device, smi: str):
+    """The measurement layer on the card: ``calibrate`` over its default
+    sweep against the committed ``H100_HBM3`` preset."""
+    from repro_torch import cfa
+    from repro_torch.core.cfa.calibrate import _STORAGES
+
+    preset = cfa.H100_HBM3
+    t0 = time.perf_counter()
+    cal = cfa.calibrate(preset, device=device)
+    secs = time.perf_counter() - t0
+    fit = cal.fitted
+    long = cfa.calibrate(preset, lengths=PRESET_LENGTHS, device=device)
+    n_synth = sum(s.label.startswith("synthetic/") for s in cal.samples)
+    log(f"[calibrate] calibrate({preset.name}, device={str(device)!r}): {len(cal.samples)} "
+        f"samples ({n_synth} synthetic, {len(cal.samples) - n_synth} plan) in {secs:.2f} s, "
+        f"noise {cal.noise!r}")
+    log(f"[calibrate] committed preset: setup_s {preset.setup_s!r}, peak_bytes_per_s "
+        f"{preset.peak_bytes_per_s!r}, elem_bytes {preset.elem_bytes}")
+    log(f"[calibrate] fitted on this card: setup_s {fit.setup_s!r}, peak_bytes_per_s "
+        f"{fit.peak_bytes_per_s!r}, port factors {dict(fit.port_factors)}"
+        + (" (no positive byte term: the fit kept the preset's peak)"
+           if fit.peak_bytes_per_s == preset.peak_bytes_per_s else ""))
+    log(f"[calibrate] fitted over the preset's sweep (lengths {PRESET_LENGTHS}): setup_s "
+        f"{long.fitted.setup_s!r}, peak_bytes_per_s {long.fitted.peak_bytes_per_s!r}, port "
+        f"factors {dict(long.fitted.port_factors)}, worst plan error preset "
+        f"{long.max_rel_err('modeled')!r}, fit {long.max_rel_err('fitted')!r}, noise "
+        f"{long.noise!r}")
+    log(f"[calibrate] worst plan error: preset {cal.max_rel_err('modeled')!r}, fit "
+        f"{cal.max_rel_err('fitted')!r} over {len(cal.plan_errors)} plan rows")
+    for r in cal.plan_errors:
+        log(f"[calibrate]   {r['program']}/{r['storage']}/p{r['n_ports']}: {r['n_bursts']} "
+            f"bursts, measured {r['measured_s']!r} s, preset {r['modeled_s']!r} s, fit "
+            f"{r['fitted_s']!r} s")
+    log(f"[calibrate] card (name, power limit): {smi}")
+    params = [v for m in (fit, long.fitted)
+              for v in (m.setup_s, m.peak_bytes_per_s, *(f for _, f in m.port_factors))]
+    if not all(math.isfinite(v) and v > 0.0 for v in params):
+        raise AssertionError(f"fitted parameters not finite and positive: {params}")
+    want = {(prog, st, p) for prog in ("jacobi2d5p", "heat3d") for st in _STORAGES
+            for p in (1, 2)}
+    got = {(r["program"], r["storage"], r["n_ports"]) for r in cal.plan_errors}
+    if got != want or len(cal.plan_errors) != len(want):
+        raise AssertionError(f"plan rows {sorted(got)} are not {sorted(want)}")
+    if not all(r["measured_s"] > 0.0 for r in cal.plan_errors):
+        raise AssertionError("a plan row measured no time")
+    if cfa.Calibration.from_json(cal.to_json()) != cal:
+        raise AssertionError("the calibration record does not survive its JSON round trip")
+    log("[calibrate] fitted parameters finite and positive, all plan rows present, JSON "
+        "round trip equal")
+    return cal
+
+
+def phase_h100_target(device, space=H100_SPACE) -> dict:
+    """The front door under the ``h100-hbm3`` target at full width: a
+    measured layout search, a verified compile, a run on the kernel."""
+    from repro_torch import cfa
+    from repro_torch.kernels.stencil import execute_tiles
+
+    target = cfa.get_target("h100-hbm3")
+    t0 = time.perf_counter()
+    decision = cfa.autotune(MAIN_PROGRAM, space, target.model, score="measured",
+                            measure_top=3, measure_kwargs={"device": "cuda"})
+    t_search = time.perf_counter() - t0
+    axi = cfa.autotune(MAIN_PROGRAM, space, cfa.AXI_ZC706)
+    log(f"[h100-target] {MAIN_PROGRAM} @ {space}: autotune(h100-hbm3, score='measured', "
+        f"measure_top=3) {t_search:.2f} s{' [cache]' if decision.from_cache else ''}: best "
+        f"{decision.best.candidate.key}, best cfa {decision.best_cfa().candidate.key}; "
+        f"axi-zc706 (modeled) chooses {axi.best_cfa().candidate.key}")
+    for s in decision.ranked[:3]:
+        log(f"[h100-target]   {s.candidate.key}: measured {s.measured_time_s!r} s, modeled "
+            f"{s.time_s!r} s, model error {s.model_error!r}")
+    t0 = time.perf_counter()
+    compiled = cfa.compile(MAIN_PROGRAM, space, target="h100-hbm3", layout=decision,
+                           verify=True, device=device)
+    t_compile = time.perf_counter() - t0
+    report = compiled.diagnostics()
+    log(f"[h100-target] compile(target='h100-hbm3', verify=True) {t_compile:.2f} s: "
+        f"{compiled.describe()}")
+    log(f"[h100-target] verify: codes {list(report.codes)}, max severity "
+        f"{report.max_severity}, analyses {[a for a, _ in report.analyses]}")
+    if report.errors or compiled.backend != "cuda":
+        raise AssertionError(f"backend {compiled.backend!r}, errors {report.errors}")
+    waves = len(compiled.pipeline.wavefronts())
+    x = seeded_inputs(MAIN_PROGRAM, space, device)
+    torch.cuda.synchronize()
+    execute_tiles.launches = 0
+    t0 = time.perf_counter()
+    facets = compiled(x, dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = execute_tiles.launches
+    ref = compiled.lower("reference")(x, dtype=torch.float32)
+    torch.cuda.synchronize()
+    log(f"[h100-target] cuda backend: {wall:.3f} s wall, {math.prod(space) / wall:.4g} "
+        f"points/s, {launches} stencil_tiles launches for {waves} waves "
+        f"(tile {compiled.pipeline.tiling.sizes})")
+    if launches != waves:
+        raise AssertionError(f"{launches} kernel launches for {waves} waves")
+    if not facets_equal(facets, ref):
+        raise AssertionError("h100-target facets differ from the reference backend")
+    log("[h100-target] facets == reference backend bit for bit")
+    # the same path at axi-zc706's choice, for the wall beside it
+    axi_compiled = cfa.compile(MAIN_PROGRAM, space, layout=axi, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    axi_facets = axi_compiled(x, dtype=torch.float32)
+    torch.cuda.synchronize()
+    axi_wall = time.perf_counter() - t0
+    log(f"[h100-target] axi-zc706's layout {axi_compiled.layout.key} on the same path: "
+        f"{axi_wall:.3f} s wall, {len(axi_compiled.pipeline.wavefronts())} waves; h100-hbm3's "
+        f"wall / axi-zc706's {wall / axi_wall:.4f}")
+    del axi_facets
+    rep = compiled.report(measured=True)
+    log(f"[h100-target] report(measured=True): modeled {target.model.time(compiled.plan)!r} s, "
+        f"measured {rep.measured_time_s!r} s, model_error {rep.model_error!r}")
+    rr = compiled.runtime_report()
+    for r in rr.rows[:3]:
+        log(f"[h100-target]   runtime_report {r.key}: observed {r.observed_s!r} s, modeled "
+            f"{r.modeled_s!r} s, deviation {r.deviation!r}, fixit {r.fixit}")
+    if not (rep.measured_time_s and rep.measured_time_s > 0.0 and rr.rows):
+        raise AssertionError("the measured report or the runtime report is empty")
+    return {"launches": launches, "waves": waves, "wall": wall,
+            "layout": compiled.layout.key}
+
+
 def _lane_overlap(trace: Path) -> str:
     """From a Chrome trace of a dataflow run: the device time of the kernels
     on the compute stream (the stencil launches) and how much of it overlaps
@@ -1853,8 +2007,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=None,
                     help="time steps of the full-width paths (default: each path's "
-                         f"size, {MAIN_SPACE[0]}, {IRREDUNDANT_SPACE[0]} and "
-                         f"{COMPRESSED_SPACE[0]})")
+                         f"size, {MAIN_SPACE[0]}, {IRREDUNDANT_SPACE[0]}, "
+                         f"{COMPRESSED_SPACE[0]} and {H100_SPACE[0]})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1872,7 +2026,7 @@ def main() -> int:
     def cut(space):
         return space if args.steps is None else (min(args.steps, space[0]), *space[1:])
 
-    phase_device()
+    smi = phase_device()
     phase_build()
     worst = phase_kernels(device)
     worst_fetch = phase_fetch(device)
@@ -1893,6 +2047,8 @@ def main() -> int:
     phase_compressed(device, cut(COMPRESSED_SPACE))
     phase_distribute(device)
     phase_halo_quantize(device)
+    phase_calibrate(device, smi)
+    h100_run = phase_h100_target(device, cut(H100_SPACE))
     runs = {arch: phase_serve(device, arch) for arch in SERVE_ARCHS}
     rows = phase_timing(device, main_run, irr_run)
     fetch_row = phase_fetch_timing(irr_run)
@@ -1955,7 +2111,8 @@ def main() -> int:
     log(f"[done] launches per path: stencil_tiles [main] {main_run['launches']}, [sharded] "
         f"{sharded_run['launches']} ({sharded_run['waves']} waves x {sharded_run['n_ports']} "
         f"ports), [dataflow] {dataflow_run['launches']}, [irredundant] "
-        f"{irr_run['launches']['stencil_tiles']}; facet_fetch [irredundant] "
+        f"{irr_run['launches']['stencil_tiles']}, [h100-target] {h100_run['launches']}; "
+        f"facet_fetch [irredundant] "
         f"{irr_run['launches']['facet_fetch']}, [fetch-sharded] {fetch_sharded_run['launches']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ The PyTorch counterpart of ``repro.cfa``:
     on_cpu   = cfa.compile("jacobi2d5p", (16, 32, 32), device="cpu")
 
 Everything here re-exports from :mod:`repro_torch.core.cfa`; the names are
-the subset of ``repro.cfa.__all__`` this slice of the port runs.
+``repro.cfa.__all__``'s, with the port's ``H100_HBM3`` in place of the
+reference's TPU preset.
 """
 from repro_torch.core.cfa import (
     # the front door
@@ -22,6 +23,7 @@ from repro_torch.core.cfa import (
     register_target,
     get_target,
     AXI_ZC706,
+    H100_HBM3,
     # execution backends + the capability gate
     Executor,
     ExecutorCaps,
@@ -44,6 +46,15 @@ from repro_torch.core.cfa import (
     autotune,
     CacheSchemaError,
     SCORE_MODES,
+    # measured-vs-modeled calibration (autotune(score="measured"),
+    # report(measured=True), CompiledStencil.runtime_report())
+    TransferSample,
+    CalibratedModel,
+    Calibration,
+    measure_runs,
+    measure_plan,
+    fit_burst_model,
+    calibrate,
     # plans / bandwidth carried on CompiledStencil
     TransferPlan,
     BurstModel,
@@ -69,6 +80,12 @@ from repro_torch.core.cfa import (
     runtime_report,
     chrome_trace,
     validate_chrome_trace,
+    # static verification (compile(verify=True), cfa.verify,
+    # CompiledStencil.diagnostics())
+    verify,
+    Diagnostic,
+    AnalysisReport,
+    VerificationError,
     # the staged lowering behind compile
     CompileState,
     Pass,
@@ -84,11 +101,14 @@ from repro_torch.core.cfa import (
 __all__ = [
     "compile", "CompiledStencil",
     "Target", "TARGETS", "register_target", "get_target", "AXI_ZC706",
+    "H100_HBM3",
     "Executor", "ExecutorCaps", "EXECUTORS", "register_executor",
     "get_executor", "available_backends", "select_backend", "BackendError",
     "IterSpace", "Deps", "Tiling", "StencilProgram", "PROGRAMS", "get_program",
     "LayoutCandidate", "ScoredLayout", "LayoutDecision", "autotune",
     "CacheSchemaError", "SCORE_MODES",
+    "TransferSample", "CalibratedModel", "Calibration", "measure_runs",
+    "measure_plan", "fit_burst_model", "calibrate",
     "TransferPlan", "BurstModel", "PortedPlan", "BandwidthReport",
     "overlap_speedup",
     "STORAGE_MODES", "StorageMap", "build_storage_map",
@@ -97,6 +117,7 @@ __all__ = [
     "CFAPipeline",
     "TraceRecorder", "Span", "Counters", "RuntimeReport", "runtime_report",
     "chrome_trace", "validate_chrome_trace",
+    "verify", "Diagnostic", "AnalysisReport", "VerificationError",
     "CompileState", "Pass", "PassPipeline", "PassTrace", "PipelineError",
     "DEFAULT_PASSES", "default_pipeline", "default_pass_fingerprint",
     "estimate_facet_bytes",

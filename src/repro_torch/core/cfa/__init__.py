@@ -2,14 +2,14 @@
 
 Module for module the reference package's layout, so a reader finds each
 counterpart by name.  The numpy-only modules are copies (``spaces``,
-``facets``, ``plans``, ``bandwidth`` without the TPU preset, ``multiport``,
-``autotune``, ``passes``, ``obs``), or the parts of one that the main path
-needs (``analysis``); ``programs``, ``transform``, ``compress``,
-``irredundant``, ``allocation``, ``executors`` and ``api`` work on tensors.  The stencil tile
+``facets``, ``plans``, ``bandwidth`` with the H100 preset in place of the
+TPU one, ``multiport``, ``autotune``, ``passes``, ``obs``, ``analysis``);
+``programs``, ``transform``, ``compress``, ``irredundant``, ``allocation``,
+``executors``, ``calibrate`` and ``api`` work on tensors.  The stencil tile
 executor is a hand-written CUDA kernel (``repro_torch.kernels.stencil``).
 
-Public API (the subset of the reference's that this slice of the port
-runs; ``repro_torch.cfa`` is the curated front door):
+Public API (the reference's, with ``H100_HBM3`` in place of
+``TPU_V5E_HBM``; ``repro_torch.cfa`` is the curated front door):
 
 * ``IterSpace`` / ``Deps`` / ``Tiling`` / ``facet_widths`` — iteration
   spaces, dependences, tilings (§IV-A..F).
@@ -25,13 +25,18 @@ runs; ``repro_torch.cfa`` is the curated front door):
 * ``TransferPlan`` / ``cfa_plan`` / ``interior_tile`` / the baseline
   plans — exact per-tile burst statistics (§V-C).
 * ``BurstModel`` / ``PortedPlan`` / ``BandwidthReport`` / ``AXI_ZC706`` /
-  ``overlap_speedup`` — the bandwidth model.
+  ``H100_HBM3`` / ``overlap_speedup`` — the bandwidth model.
 * ``assign_ports`` / ``repartition`` / ``best_repartition`` — the §VII
   repartition arithmetic, executed by the ``sharded`` backend.
 * ``StencilProgram`` / ``PROGRAMS`` / ``get_program`` — the Table I suite.
 * ``CFAPipeline`` — the read->execute->write tile pipeline of §V.
 * ``autotune`` / ``LayoutCandidate`` / ``ScoredLayout`` /
-  ``LayoutDecision`` — the layout search (modeled score).
+  ``LayoutDecision`` — the layout search (modeled or measured score).
+* ``measure_runs`` / ``measure_plan`` / ``fit_burst_model`` /
+  ``calibrate`` / ``CalibratedModel`` / ``Calibration`` — measured-vs-
+  modeled calibration on a device.
+* ``verify`` / ``Diagnostic`` / ``AnalysisReport`` / ``lint_plan`` /
+  ``DEFAULT_ANALYSES`` — the static verifier and burst lint.
 * ``TraceRecorder`` / ``Span`` / ``Counters`` / ``chrome_trace`` —
   runtime telemetry.
 * ``CompileState`` / ``PassPipeline`` / ``default_pipeline`` — the staged
@@ -83,6 +88,7 @@ from .bandwidth import (
     PortedPlan,
     BandwidthReport,
     AXI_ZC706,
+    H100_HBM3,
     overlap_speedup,
 )
 from .multiport import (
@@ -103,6 +109,18 @@ from .autotune import (
     autotune,
     candidate_tilings,
     hand_coded_baselines,
+)
+from .calibrate import (
+    TransferSample,
+    CalibratedModel,
+    Calibration,
+    CalibrationError,
+    measure_runs,
+    measure_plan,
+    fit_burst_model,
+    calibrate,
+    measurement_noise,
+    timing_unusable_reason,
 )
 from .obs import (
     Span,
@@ -136,6 +154,21 @@ from .executors import (
     ineligible_reason,
     select_backend,
 )
+from .analysis import (
+    Diagnostic,
+    AnalysisReport,
+    VerificationError,
+    AnalysisPass,
+    analysis_pass,
+    DEFAULT_ANALYSES,
+    check_facet_family,
+    plan_accounting,
+    check_overlap_schedule,
+    lint_plan,
+    run_analyses,
+    verify,
+    verify_pipeline,
+)
 from .api import (
     Target,
     TARGETS,
@@ -156,13 +189,16 @@ __all__ = [
     "BlockCodec", "CODECS", "get_codec",
     "TransferPlan", "count_runs", "cfa_plan", "cfa_piece_census", "original_layout_plan",
     "bounding_box_plan", "data_tiling_plan", "interior_tile",
-    "BurstModel", "PortedPlan", "BandwidthReport", "AXI_ZC706",
+    "BurstModel", "PortedPlan", "BandwidthReport", "AXI_ZC706", "H100_HBM3",
     "overlap_speedup",
     "PortAssignment", "PORT_STRATEGIES", "assign_ports",
     "repartition", "best_repartition", "port_speedup",
     "StencilProgram", "PROGRAMS", "get_program",
     "LayoutCandidate", "ScoredLayout", "LayoutDecision", "CacheSchemaError",
     "SCORE_MODES", "autotune", "candidate_tilings", "hand_coded_baselines",
+    "TransferSample", "CalibratedModel", "Calibration", "CalibrationError",
+    "measure_runs", "measure_plan", "fit_burst_model", "calibrate",
+    "measurement_noise", "timing_unusable_reason",
     "Span", "Counters", "TraceRecorder", "RuntimeReport", "runtime_report",
     "chrome_trace", "validate_chrome_trace",
     "CFAPipeline",
@@ -172,6 +208,10 @@ __all__ = [
     "BackendError", "Executor", "ExecutorCaps", "EXECUTORS",
     "register_executor", "get_executor", "available_backends",
     "ineligible_reason", "select_backend",
+    "Diagnostic", "AnalysisReport", "VerificationError",
+    "AnalysisPass", "analysis_pass", "DEFAULT_ANALYSES",
+    "check_facet_family", "plan_accounting", "check_overlap_schedule",
+    "lint_plan", "run_analyses", "verify", "verify_pipeline",
     "Target", "TARGETS", "register_target", "get_target",
     "compile", "CompiledStencil",
 ]

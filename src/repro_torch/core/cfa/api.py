@@ -23,13 +23,16 @@ the CPU; ``device="cpu"`` is asked for explicitly, and there the kernel's
 wrapper runs its plain PyTorch version.
 
 The :class:`Target` registry holds the paper's ZC706 AXI port model, the
-default.  The three facet storage disciplines (``storage="redundant"``,
-``"irredundant"``, ``"compressed"`` with a ``codec``) all run, as do
-multi-port execution (``n_ports > 1`` or a ``host_budget`` the space
-exceeds: the ``sharded`` backend, one CUDA stream per port), the overlapped
-``dataflow`` backend (``overlap=True``) and int8 halo quantization
-(``halo_quantize=True``).  The static verifier (``verify=True``) arrives
-with the analysis slice of the port; ``compile`` rejects it loudly.
+default, and ``h100-hbm3``, the card's burst model as the port's
+measurement harness fits it.  The three facet storage disciplines
+(``storage="redundant"``, ``"irredundant"``, ``"compressed"`` with a
+``codec``) all run, as do multi-port execution (``n_ports > 1`` or a
+``host_budget`` the space exceeds: the ``sharded`` backend, one CUDA stream
+per port), the overlapped ``dataflow`` backend (``overlap=True``), int8
+halo quantization (``halo_quantize=True``), the static verifier
+(``verify=True``, :meth:`CompiledStencil.diagnostics`) and measured reports
+(``report(measured=True)``, :meth:`CompiledStencil.runtime_report`), which
+time the plan's bursts on the stencil's device.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from typing import Mapping, Sequence
 import torch
 
 from .autotune import LayoutCandidate, LayoutDecision
-from .bandwidth import AXI_ZC706, BandwidthReport, BurstModel
+from .bandwidth import AXI_ZC706, H100_HBM3, BandwidthReport, BurstModel
 from .compress import BlockCodec
 from .irredundant import rehydrate_facets
 from .multiport import best_repartition
@@ -72,8 +75,9 @@ class Target:
     """A memory platform: a :class:`BurstModel` plus its port budget.
 
     ``max_ports`` is how many independent memory ports the platform offers
-    (AXI HP ports on the ZC706); ``None`` means unvalidated (custom
-    models).  ``compile`` rejects ``n_ports`` beyond the budget.
+    (AXI HP ports on the ZC706, HBM3 stacks on the H100); ``None`` means
+    unvalidated (custom models).  ``compile`` rejects ``n_ports`` beyond
+    the budget.
     """
 
     name: str
@@ -99,6 +103,12 @@ def register_target(target: Target, *, overwrite: bool = False) -> Target:
 register_target(Target(
     name="axi-zc706", model=AXI_ZC706, max_ports=4,
     description="the paper's Zynq ZC706: 4 AXI HP ports, 800 MB/s each (§VI-A)",
+))
+register_target(Target(
+    name="h100-hbm3", model=H100_HBM3, max_ports=5,
+    description="NVIDIA H100 SXM5 80GB: 5 active HBM3 stacks (a 5120-bit "
+                "bus, NVIDIA's data sheet) as the port budget; each port of "
+                "the sharded backend is a CUDA stream of the one card",
 ))
 
 
@@ -169,6 +179,10 @@ class CompiledStencil:
     distributed: bool = False
     # the per-pass lowering record (PassPipeline.run), attached by compile
     lowering: tuple = dataclasses.field(default=(), repr=False, compare=False)
+    # the AnalysisReport of compile(..., verify=True); None when the
+    # lowering ran without the analysis passes (diagnostics() then runs
+    # the suite on demand)
+    analysis: object = dataclasses.field(default=None, repr=False, compare=False)
     # compile(..., trace=True): every __call__ records a runtime trace
     trace_enabled: bool = dataclasses.field(default=False, repr=False, compare=False)
     # mutable holder for the most recent run's TraceRecorder (the stencil
@@ -189,11 +203,17 @@ class CompiledStencil:
         return self.lowering
 
     def diagnostics(self):
-        """The static-analysis report — not ported yet."""
-        raise NotImplementedError(
-            "diagnostics() runs the static verifier, which arrives with the "
-            "analysis slice of the PyTorch port"
-        )
+        """The static-analysis report for this stencil.
+
+        Returns the :class:`~repro_torch.core.cfa.analysis.AnalysisReport`
+        attached by ``compile(..., verify=True)``; when the lowering ran
+        without the analysis passes, runs the default suite on demand
+        (never raising — inspect ``report.errors`` / ``report.ok``)."""
+        if self.analysis is not None:
+            return self.analysis
+        from . import analysis as _analysis
+
+        return _analysis.verify(self, raise_on_error=False)
 
     @property
     def storage_map(self):
@@ -250,10 +270,13 @@ class CompiledStencil:
 
     def runtime_report(self, **kwargs):
         """Measured-vs-modeled attribution of this stencil's interior-tile
-        plan (:func:`repro_torch.core.cfa.obs.runtime_report`; it needs the
-        calibration harness, which arrives with the calibration slice)."""
+        plan (:func:`repro_torch.core.cfa.obs.runtime_report`): per-facet /
+        per-port observed time on the stencil's device vs
+        ``BurstModel.time``, ranked worst deviation first, each row carrying
+        the static lint's fixit."""
         from .obs import runtime_report as _rr
 
+        kwargs.setdefault("device", self.device)
         kwargs.setdefault("n_ports", self.n_ports)
         kwargs.setdefault("contiguity", self.layout.contiguity)
         kwargs.setdefault("overlap", self.executor.caps.overlap)
@@ -279,14 +302,15 @@ class CompiledStencil:
         ``overlap`` (default: whether the bound backend declares
         ``ExecutorCaps.overlap``) picks the sequential sum or the Fig. 13
         DATAFLOW pipelined composition — see ``BurstModel.time``.
-        ``measured=True`` needs the calibration harness (a later slice).
+
+        ``measured=True`` additionally times the exact burst schedule on the
+        stencil's device (``calibrate.measure_plan``, warmup + median-of-k)
+        and fills the report's ``measured_time_s`` and ``model_error`` — the
+        modeled time's relative error against the measurement.  When the
+        stencil came from an ``autotune(score="measured")`` decision whose
+        winner is this layout, the decision's stored measurement is reused
+        instead of re-timing.
         """
-        if measured:
-            raise NotImplementedError(
-                "report(measured=True) times the plan with the calibration "
-                "harness, which arrives with the calibration slice of the "
-                "PyTorch port"
-            )
         m = model if model is not None else self.target.model
         if overlap is None:
             overlap = self.executor.caps.overlap
@@ -294,8 +318,28 @@ class CompiledStencil:
         if self.n_ports > 1:
             plan = best_repartition(plan, self.n_ports, m,
                                     compute_s=compute_s, overlap=overlap)
-        return BandwidthReport.evaluate(plan, m, compute_s=compute_s,
-                                        overlap=overlap)
+        measured_s = None
+        if measured:
+            d = self.decision
+            stored = d.best if (
+                d is not None and d.score == "measured"
+                and model is None and warmup is None and repeats is None
+                and compute_s == 0.0 and overlap == d.overlap
+                and d.best.candidate == self.layout
+                and d.best.measured_time_s is not None
+            ) else None
+            if stored is not None:
+                measured_s = stored.measured_time_s
+            else:
+                from .calibrate import measure_plan
+
+                measured_s = measure_plan(plan, m, warmup=warmup,
+                                          repeats=repeats,
+                                          compute_s=compute_s,
+                                          overlap=overlap,
+                                          device=self.device)
+        return BandwidthReport.evaluate(plan, m, measured_s=measured_s,
+                                        compute_s=compute_s, overlap=overlap)
 
     def lower(self, backend: str) -> "CompiledStencil":
         """Rebind to another backend (re-validated): same program, space,
@@ -336,15 +380,6 @@ class CompiledStencil:
 # --------------------------------------------------------------------------
 # compile
 # --------------------------------------------------------------------------
-
-
-def _reject_unported(verify) -> None:
-    """Fail before the layout search for what the port does not run yet."""
-    if verify:
-        raise NotImplementedError(
-            "verify=True: not in the PyTorch port yet (it arrives with the "
-            "analysis slice); the reference package's repro.cfa.compile has it"
-        )
 
 
 def compile(
@@ -405,17 +440,18 @@ def compile(
       int8 quantizer (lossy halo traffic).
     * ``passes`` — a custom :class:`~repro_torch.core.cfa.passes.PassPipeline`
       to lower with instead of the default one.
+    * ``verify`` — append the static analysis suite
+      (:data:`~repro_torch.core.cfa.analysis.DEFAULT_ANALYSES`) to the
+      lowering: any ERROR diagnostic raises :class:`~repro_torch.core.cfa.
+      analysis.VerificationError`, and the full report is surfaced as
+      ``compiled.diagnostics()``.
     * ``trace`` — record a runtime :class:`~repro_torch.core.cfa.obs.
       TraceRecorder` on every call (default ``None`` follows the
       ``REPRO_TRACE`` environment knob).
 
     plus ``device``: the torch device facets live and tiles run on
     (``"cuda"`` by default; a missing card raises :class:`RuntimeError`).
-
-    ``verify=True`` belongs to a later slice of the port and raises
-    :class:`NotImplementedError`.
     """
-    _reject_unported(verify)
     state = CompileState(
         program=program, space=space, target=target, n_ports=n_ports,
         layout=layout, backend=backend, storage=storage, codec=codec,
@@ -425,6 +461,10 @@ def compile(
         device=resolve_device(device),
     )
     pipe = default_pipeline() if passes is None else passes
+    if verify:
+        from . import analysis as _analysis
+
+        pipe = _analysis.verify_pipeline(pipe)
     final = pipe.run(state)
     if final.compiled is None:
         raise RuntimeError(
@@ -435,5 +475,17 @@ def compile(
         from .obs import trace_enabled_by_env
 
         trace = trace_enabled_by_env()
-    return dataclasses.replace(final.compiled, lowering=final.trace,
-                               trace_enabled=bool(trace))
+    compiled = dataclasses.replace(final.compiled, lowering=final.trace,
+                                   trace_enabled=bool(trace))
+    if verify:
+        report = _analysis.AnalysisReport(
+            tuple(final.diagnostics),
+            analyses=tuple(
+                (p.name, p.version) for p in pipe.passes
+                if isinstance(p, _analysis.AnalysisPass)
+            ),
+        )
+        compiled = dataclasses.replace(compiled, analysis=report)
+        if report.errors:
+            raise _analysis.VerificationError(report)
+    return compiled

@@ -591,6 +591,27 @@ def clear_cache(cache_dir: Path | str | None = None) -> int:
     return n
 
 
+def _device_key(device) -> str:
+    """A measurement device as the cache key names it: ``"cuda"`` and
+    ``torch.device("cuda")`` name the current card's index, as ``"cuda:0"``
+    does on a one-card host."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        index = torch.cuda.current_device() if torch.cuda.is_available() else 0
+        dev = torch.device("cuda", index)
+    return str(dev)
+
+
+def _measure_key(measure_kwargs: dict | None) -> list:
+    """``measure_kwargs`` as JSON: sorted items, a device by its name."""
+    return sorted(
+        (k, _device_key(v) if k == "device" else v)
+        for k, v in (measure_kwargs or {}).items()
+    )
+
+
 def _cache_key(
     program: StencilProgram,
     space: IterSpace,
@@ -643,7 +664,7 @@ def _cache_key(
             "score": score,
             "host": host_fingerprint() if score == "measured" else None,
             "measure_top": measure_top if score == "measured" else None,
-            "measure_kwargs": (sorted((measure_kwargs or {}).items())
+            "measure_kwargs": (_measure_key(measure_kwargs)
                                if score == "measured" else None),
             # the dataflow overlap axis (schema v6)
             "overlap": overlap,
@@ -798,7 +819,8 @@ def autotune(
     ``score="measured"`` re-ranks the top ``measure_top`` modeled
     candidates by *measured wall-clock* of their exact burst schedules on
     this host (``calibrate.measure_plan``; ``measure_kwargs`` forwards
-    ``warmup``/``repeats``): the measured candidates lead the ranking in
+    ``warmup``/``repeats`` and the ``device``, ``"cuda"`` unless named —
+    ``compile`` names the stencil's): the measured candidates lead the ranking in
     wall-clock order, each carrying ``measured_time_s`` and the modeled
     time's relative ``model_error``; unmeasured candidates follow in
     modeled order.  Measured decisions cache under a key that folds in the
@@ -845,12 +867,6 @@ def autotune(
         )
     if score not in SCORE_MODES:
         raise ValueError(f"score must be one of {SCORE_MODES}: {score!r}")
-    if score == "measured":
-        raise NotImplementedError(
-            'score="measured" times candidates with the calibration harness '
-            "(calibrate.measure_plan), which arrives with the calibration "
-            "slice of the PyTorch port; use the default score=\"modeled\""
-        )
     if measure_top < 1:
         raise ValueError(f"measure_top must be >= 1: {measure_top}")
     if compute_per_elem_s < 0:

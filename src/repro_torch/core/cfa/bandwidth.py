@@ -34,10 +34,13 @@ and above by the sequential sum, and equals the plain transfer time when
 ``compute_s`` is zero.  ``overlap_speedup`` reports the modeled gain; the
 ``backend="dataflow"`` executor realises the schedule.
 
-One preset:
+Two presets:
 
 * ``AXI_ZC706``  — the paper's platform (calibration target for Fig. 15).
-  A GPU target comes with the port's calibration.
+* ``H100_HBM3``  — the port's card: an NVIDIA H100's HBM3 as the measurement
+  harness (``repro_torch.core.cfa.calibrate``) sees it, one elementwise
+  device op plus one synchronize per burst, float32 elements; its two
+  parameters are a fit of ``calibrate(device="cuda")`` on the card.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ __all__ = [
     "BurstModel",
     "PortedPlan",
     "AXI_ZC706",
+    "H100_HBM3",
     "BandwidthReport",
     "overlap_speedup",
 ]
@@ -228,6 +232,19 @@ class BurstModel:
 # costs tens of cycles of addressing/DRAM latency.  25 cycles @ 100 MHz.
 AXI_ZC706 = BurstModel(
     name="axi-zc706", peak_bytes_per_s=800e6, setup_s=250e-9, elem_bytes=8
+)
+
+# The port's card, float32 elements (the stencil paths run f32).  setup_s and
+# peak_bytes_per_s are the fit of calibrate(H100_HBM3, lengths=PRESET_LENGTHS,
+# device="cuda") that chip_smoke.py's [calibrate] phase prints ("fitted over
+# the preset's sweep"), on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit
+# (nvidia-smi name, power.limit), torch 2.11.0+cu128.  setup_s is one launch
+# plus one torch.cuda.synchronize as the host clock sees it, not HBM latency;
+# the peak counts each burst's bytes once where the copy reads and writes
+# them, so it is not the card's HBM rate (3.35 TB/s on the data sheet).
+H100_HBM3 = BurstModel(
+    name="h100-hbm3", peak_bytes_per_s=1519028621712.9873,
+    setup_s=1.4455039853071782e-05, elem_bytes=4,
 )
 
 

@@ -44,8 +44,9 @@ device finishes, so a span around a phase times its *enqueue*, not the
 device work; only a span that ends in ``torch.cuda.synchronize()`` (or
 CUDA-event timing, which ``chip_smoke.py`` uses for the kernels) measures
 the card.  The counters are exact either way.  The measurement harness
-(``measure_runs``/``measure_plan``) and the measured attribution
-(:func:`runtime_report`) arrive with the port's calibration slice.
+(``calibrate.measure_runs``/``measure_plan``) synchronises the device
+around every burst it times, so its spans and :func:`runtime_report`'s
+rows do read the device.
 """
 from __future__ import annotations
 
@@ -126,11 +127,12 @@ _PROBE_SCHEDULE = (4096,) * 8
 _MAX_NOISE = 0.75  # relative spread beyond which timing tests must skip
 
 
-@functools.lru_cache(maxsize=1)
-def _timing_probe() -> tuple[str | None, float]:
-    """(why timing is unusable here | None, measured relative noise).
+@functools.lru_cache(maxsize=None)
+def _timing_probe(device: str = "cuda") -> tuple[str | None, float]:
+    """(why timing is unusable on ``device`` here | None, measured relative
+    noise).
 
-    Probe once, cache, let tests skip with the reason.
+    Probe once per device, cache, let tests skip with the reason.
     ``REPRO_TIMING_TESTS=skip`` forces the skip (CI escape hatch for
     known-noisy runners); ``=force`` trusts the host unconditionally.
     """
@@ -142,13 +144,11 @@ def _timing_probe() -> tuple[str | None, float]:
     res = time.get_clock_info("perf_counter").resolution
     if res > 1e-4:
         return f"perf_counter resolution too coarse ({res:.1e} s)", 1.0
+    from .calibrate import measure_runs  # lazy: calibrate imports obs
+
     try:
-        from .calibrate import measure_runs  # lazy: calibrate imports obs
-    except ImportError:
-        return ("no measurement harness in this package yet (it arrives "
-                "with the calibration slice)"), 1.0
-    try:
-        ts = [measure_runs(_PROBE_SCHEDULE, 8, warmup=1, repeats=3)
+        ts = [measure_runs(_PROBE_SCHEDULE, 8, warmup=1, repeats=3,
+                           device=device)
               for _ in range(2)]
     except Exception as e:  # no usable device, OOM, ...
         return f"measurement harness failed to run ({e!r})", 1.0
@@ -162,15 +162,16 @@ def _timing_probe() -> tuple[str | None, float]:
     return None, spread
 
 
-def timing_unusable_reason() -> str | None:
-    """None when wall-clock measurement is trustworthy here, else why not."""
-    return _timing_probe()[0]
+def timing_unusable_reason(device: "torch.device | str" = "cuda") -> str | None:
+    """None when wall-clock measurement on ``device`` is trustworthy here,
+    else why not."""
+    return _timing_probe(str(device))[0]
 
 
-def measurement_noise() -> float:
-    """Relative spread of the reference schedule on this host (probe-
+def measurement_noise(device: "torch.device | str" = "cuda") -> float:
+    """Relative spread of the reference schedule on ``device`` (probe-
     cached); timing tests scale their tolerances by it."""
-    return _timing_probe()[1]
+    return _timing_probe(str(device))[1]
 
 
 # --------------------------------------------------------------------------
@@ -694,6 +695,7 @@ def runtime_report(
     warmup: int | None = None,
     repeats: int | None = None,
     recorder: TraceRecorder | None = None,
+    device: "torch.device | str" = "cuda",
 ) -> RuntimeReport:
     """Measure a plan's schedule slices, compare each against
     ``BurstModel.time``, and rank the deviations.
@@ -708,22 +710,15 @@ def runtime_report(
       when the plan attributes runs to facet hosts (CFA plans do;
       single-array baselines have no host axis to split on);
 
-    each measured with the ``calibrate`` harness (spans emitted through
-    ``recorder`` when given).  Every row carries the fixit knob of the
+    each measured with the ``calibrate`` harness on ``device`` (spans
+    emitted through ``recorder`` when given).  Every row carries the fixit knob of the
     matching ``lint_plan`` diagnostic — per-facet rows prefer a
     diagnostic located at that facet, any row falls back to the
     plan-level worst — so a deviation always arrives with the same
     actionable vocabulary the static analysis uses.
     """
-    try:
-        from .analysis import lint_plan
-        from .calibrate import measure_plan, measure_runs
-    except ImportError:
-        raise NotImplementedError(
-            "runtime_report times the plan with the calibration harness and "
-            "ranks it with the burst lint; both arrive with the calibration "
-            "and analysis slices of the PyTorch port"
-        ) from None
+    from .analysis import lint_plan
+    from .calibrate import measure_plan, measure_runs
     from .multiport import best_repartition
     from .bandwidth import PortedPlan
 
@@ -740,7 +735,7 @@ def runtime_report(
     if n_ports > 1 and not isinstance(plan, PortedPlan):
         target = best_repartition(plan, n_ports, model,
                                   compute_s=compute_s, overlap=overlap)
-    kw = dict(warmup=warmup, repeats=repeats)
+    kw = dict(warmup=warmup, repeats=repeats, device=device)
     cb = getattr(plan, "codec_bits", None)
     rows: list[Attribution] = []
 
@@ -787,7 +782,7 @@ def runtime_report(
     rows.sort(key=lambda r: (r.deviation is not None, r.deviation or 0.0),
               reverse=True)
     return RuntimeReport(scheme=plan.scheme, rows=tuple(rows),
-                         noise=measurement_noise())
+                         noise=measurement_noise(device))
 
 
 def _env_flag(name: str) -> bool:

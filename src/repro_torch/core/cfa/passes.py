@@ -483,6 +483,11 @@ def layout_search(state: CompileState) -> CompileState:
         if layout == "autotune":
             kwargs = dict(state.autotune_kwargs or {})
             kwargs.setdefault("pass_fingerprint", state.pass_fingerprint)
+            if kwargs.get("score") == "measured":
+                # a measured search times its candidates on the device the
+                # stencil is compiled for, unless the caller names another
+                kwargs["measure_kwargs"] = {
+                    "device": state.device, **(kwargs.get("measure_kwargs") or {})}
             decision = autotune(state.program, state.space,
                                 state.target.model, n_ports=state.n_ports,
                                 storage=state.storage, codec=state.codec,

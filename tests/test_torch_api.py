@@ -10,8 +10,12 @@
 * ``layout="autotune"`` picks the reference's candidate, and a layout the
   reference chose runs in the port through ``repro_torch.interop``;
 * a traced run reconciles exactly; the default ``device="cuda"`` raises
-  without a card; what the port does not run yet (``verify``, the
-  ``pallas`` backend, measured reports) raises.
+  without a card; the options the port once rejected (``verify``,
+  measured reports and searches, ``diagnostics``, ``runtime_report``) run,
+  and the reference's ``pallas`` backend is not in the port's registry;
+* the public surface equals the reference's, with ``H100_HBM3`` in place
+  of ``TPU_V5E_HBM``, and the target registry holds ``axi-zc706`` and
+  ``h100-hbm3``.
 """
 import dataclasses
 import functools
@@ -171,23 +175,29 @@ def test_default_device_is_cuda_and_needs_a_card():
 
 @pytest.mark.parametrize("kw,backend", [
     (dict(n_ports=2), "sharded"), (dict(overlap=True), "dataflow"),
-    (dict(halo_quantize=True), "cuda"), (dict(verify=True), None),
+    (dict(halo_quantize=True), "cuda"), (dict(verify=True), "cuda"),
 ], ids=["n_ports", "overlap", "halo_quantize", "verify"])
 def test_unported_options_raise(kw, backend):
-    """Of the options the port once rejected, only ``verify`` (the analysis
-    slice) still raises; the multi-port, dataflow and halo-quantize options
-    compile to their backends."""
-    if backend is None:
-        with pytest.raises(NotImplementedError, match="PyTorch port"):
-            _port("jacobi2d5p", **kw)
-        return
+    """Every option the port once rejected now compiles: the multi-port,
+    dataflow and halo-quantize options to their backends, and ``verify``
+    to the auto backend with the analysis report attached."""
     compiled = _port("jacobi2d5p", **kw)
     assert compiled.backend == backend
     assert compiled.pipeline.halo_quantize == kw.get("halo_quantize", False)
     assert compiled.n_ports == kw.get("n_ports", 1)
+    if kw.get("verify"):
+        report = compiled.diagnostics()
+        assert report is compiled.analysis and report.ok
+        assert [a for a, _ in report.analyses] == [
+            "verify_single_assignment", "verify_overlap", "lint_bursts", "verify_contracts"]
+    else:
+        assert compiled.analysis is None
 
 
 def test_unported_backends_and_methods_raise():
+    """Only the reference's ``pallas`` backend is missing from the port (its
+    ``cuda`` backend stands in); the measured and analysis methods run on
+    the stencil's device, here the CPU."""
     compiled = _port("jacobi2d5p")
     with pytest.raises(cfa.BackendError, match="unknown backend"):
         compiled.lower("pallas")
@@ -195,21 +205,47 @@ def test_unported_backends_and_methods_raise():
         assert compiled.lower(backend).backend == backend
     with pytest.raises(cfa.BackendError, match="3-D spaces only"):
         _port("heat1d", "cuda")
-    with pytest.raises(NotImplementedError, match="calibration"):
-        compiled.report(measured=True)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        compiled.diagnostics()
-    with pytest.raises(NotImplementedError, match="calibration"):
-        compiled.runtime_report()
-    with pytest.raises(NotImplementedError, match="calibration"):
-        cfa.autotune("jacobi2d5p", (8, 8, 8), score="measured", cache=False)
+    measured = dict(warmup=1, repeats=3)
+    rep = compiled.report(measured=True, **measured)
+    assert rep.measured_time_s > 0 and rep.model_error is not None
+    assert compiled.diagnostics().ok and compiled.diagnostics().codes == ("CFA303",)
+    rows = compiled.runtime_report(**measured).rows
+    assert rows and all(r.observed_s > 0 for r in rows)
+    d = cfa.autotune("jacobi2d5p", (8, 8, 8), score="measured", measure_top=2, cache=False,
+                     measure_kwargs=dict(device="cpu", **measured))
+    assert sum(s.measured_time_s is not None for s in d.ranked) == 2
     # the storage disciplines run: the codec is no longer a stub
     assert torch.equal(cfa.get_codec("deltapack16").roundtrip(torch.zeros(4)), torch.zeros(4))
-    assert "tpu-v5e-hbm" not in cfa.TARGETS and list(cfa.TARGETS) == ["axi-zc706"]
+    assert "tpu-v5e-hbm" not in cfa.TARGETS
+    assert list(cfa.TARGETS) == ["axi-zc706", "h100-hbm3"]
     assert sorted(cfa.EXECUTORS) == ["cuda", "dataflow", "reference", "sharded", "sweep",
                                      "wavefront"]
 
 
 def test_public_surface_is_a_subset_of_the_reference():
-    assert set(cfa.__all__) <= set(jcfa.__all__)
+    """Every public name but the port's own device preset is the reference's."""
+    assert set(cfa.__all__) - {"H100_HBM3"} <= set(jcfa.__all__)
     assert {"compile", "CompiledStencil", "CFAPipeline", "autotune"} <= set(cfa.__all__)
+
+
+def test_public_surface_equals_the_reference():
+    assert set(cfa.__all__) == set(jcfa.__all__) - {"TPU_V5E_HBM"} | {"H100_HBM3"}
+    from repro.core import cfa as jcore
+    from repro_torch.core import cfa as core
+
+    assert set(core.__all__) == set(jcore.__all__) - {"TPU_V5E_HBM"} | {"H100_HBM3"}
+
+
+def test_h100_target_is_registered_with_its_fitted_model():
+    target = cfa.get_target("h100-hbm3")
+    assert target.model is cfa.H100_HBM3 and target.max_ports == 5
+    assert "HBM3" in target.description
+    m = cfa.H100_HBM3
+    assert m.elem_bytes == 4 and m.setup_s > 0 and 0 < m.peak_bytes_per_s < 3.35e12
+    assert cfa.get_target(m) is target and cfa.get_target("axi-zc706").model is cfa.AXI_ZC706
+    compiled = _port("jacobi2d5p", target="h100-hbm3", verify=True)
+    assert compiled.target is target and compiled.report().model == "h100-hbm3"
+    with pytest.raises(ValueError, match="memory port"):
+        _port("jacobi2d5p", target="h100-hbm3", n_ports=6, backend="sharded")
+    # the default target stays the paper's, as in the reference
+    assert _port("jacobi2d5p").target.name == "axi-zc706"
