@@ -118,8 +118,12 @@ result line unless every phase passed):
                or word); 1s over 4 port streams against one launch over the
                same wave (in turns), 2s against kernel 2;
 11. attn-kernel — ``decode_attention`` against its plain version on
-               ``tests/test_kernels.py``'s shapes, the partial final block
-               and qwen3-0.6b's decode shape (B 8, Hq 16, Hkv 8, D 128,
+               ``tests/test_kernels.py``'s shapes, the partial final block,
+               the decode shapes of jamba's SMOKE (B 4, Hq 4, Hkv 2, D 16,
+               bs 16), olmoe-1b-7b (B 8, Hq = Hkv = 16, D 128: one query
+               head per kv head), seamless-m4t-large-v2 (B 4, Hq = Hkv = 16,
+               D 64, nb 3), llama-3.2-vision-11b (B 4, Hq 32, Hkv 8, D 128,
+               nb 3) and qwen3-0.6b (B 8, Hq 16, Hkv 8, D 128,
                bs 256, nb 8; lengths 1, 256, 257, 2048, ...), for (q, K/V)
                in float32/float32, bfloat16/bfloat16 and float32/bfloat16
                (the model's float32-compute pairing); within 2e-5 + 2e-5 |want|
@@ -132,27 +136,63 @@ result line unless every phase passed):
                call captured in a CUDA graph equal to the eager one;
 12. ssd-kernel — ``ssd_scan`` against its plain version on the test shapes,
                mamba2-370m's prefill shape (B 1 and 4, T 1024, H 32, P 64,
-               N 128, chunk 128) and the serve stream's prompts shorter than
+               N 128, chunk 128), jamba's SMOKE shape (chunk 8) and the
+               serve stream's prompts shorter than
                a chunk (chunk = T), float32 and bfloat16; y within 1e-4 +
                1e-4 |want| and 1e-3 + 2^-7 |want| (the bfloat16 control
                must exceed it), the final state within 1e-4 + 1e-4 |want|;
-13. serve    — slice 3's path: for qwen3-0.6b and mamba2-370m at ``tp=1``
+13. serve    — slices 3 and 8: for qwen3-0.6b, mamba2-370m and olmoe-1b-7b
+               (64 experts, top-8, in each of its 16 layers) at ``tp=1``
                (the published widths and depth, random weights from
                ``torch.Generator("cuda").manual_seed(0)``) a
                ``ContinuousBatcher`` with 8 lanes and ``max_seq`` 2048
                answers 16 requests (prompt lengths seeded uniform in
                64..1024, 64 new tokens each).  Every request must finish with
                64 tokens, every logit must be finite, ``decode_attention``
-               must launch 28 times per decode tick and ``ssd_scan`` 48
-               times per admitted prefill; then one request (prompt 128, 4
+               must launch once per attention layer per decode tick (28,
+               0, 16) and ``ssd_scan`` once per Mamba layer per admitted
+               prefill (0, 48, 0); then one request (prompt 128, 4
                decode steps) on the card against the same port on the CPU
-               with the weights copied over: relative max logit error below
-               1e-3 with float32 compute and caches at full depth, and below
-               0.06 in the served bfloat16 at full depth (qwen3) or cut to 4
-               layers (mamba2, whose 48 random layers amplify bf16 rounding;
-               the errors at 1-16 layers and full depth are printed);
-               tokens/s, ``stats()``, peak memory and a profiler window over
-               decode ticks (kernel time only) are printed;
+               with the weights copied over (``CPU_CHECK``): relative max
+               logit error below 1e-3 with float32 compute and caches at
+               full depth (qwen3, mamba2) or a 2-layer cut (olmoe), and
+               below 0.06 in the served bfloat16 at full depth (qwen3), cut
+               to 4 layers (mamba2, whose 48 random layers amplify bf16
+               rounding; the errors at 1-16 layers and full depth are
+               printed) or to 2 (olmoe); tokens/s, ``stats()``, peak memory
+               and a profiler window over decode ticks (kernel time only)
+               are printed, and for olmoe the tick beside its dense-expert
+               bound (every expert's weights read each tick, as the
+               reference's dense dispatch does: 12.9 GB over 3.35 TB/s);
+    serve-ctx — slice 8's context paths as a user runs them:
+               ``repro_torch.launch.serve.main`` (``python -m
+               repro_torch.launch.serve``) for llama-3.2-vision-11b (40
+               layers, every 5th cross-attention to 1600 patch embeddings)
+               and seamless-m4t-large-v2 (a 24-layer encoder over 4096
+               frame embeddings, 24 decoder layers) at full width and depth,
+               batch 4, prompt 512, 64 new tokens, seed 0:
+               finite logits, the tokens' shape, ``decode_attention``
+               launches = self-attention layers x 63 decode steps (32 x 63,
+               24 x 63), no ``ssd_scan``; then the card-vs-CPU check (the
+               limits above) on a full-width cut — one 5-layer period for
+               the VLM, with its cross layer's gate at 0.5 so that the
+               cross-attention reaches the logits; 2 encoder + 2 decoder
+               layers for seamless — with the full context;
+    jamba-smoke — jamba-1.5-large-398b's SMOKE config (attention, 7 Mamba
+               layers, MoE on every other layer) through the batcher on the
+               card in its served bfloat16, 8 requests on 4 lanes: every
+               request finishes, ``decode_attention`` launches = ticks,
+               ``ssd_scan`` = 7 x 8; each of its prefill and decode calls
+               replayed on the CPU (weights copied, the card's tokens and
+               expert choices fed) within 0.06; then the card-vs-CPU check
+               on the whole SMOKE model (float32 within 1e-3, bf16 within
+               0.06).  In every card-vs-CPU check of a model with experts
+               the CPU runs the card's expert choices (top-k is
+               discontinuous: at a near-tie one rounding picks another
+               expert); its own choices may differ in float32 only where
+               the k-th and (k+1)-th router probabilities are within
+               ``ROUTE_TIE_F32`` (1e-5) on both devices, and in bfloat16
+               the differing choices are printed with their margins;
 14. serve timing — both kernels timed as in phase 10 at their path
                shapes, beside their plain versions, their bounds and, for
                ``decode_attention``, ``scaled_dot_product_attention`` over
@@ -167,7 +207,9 @@ result line unless every phase passed):
 The phases run in the order device, build, kernels, fetch, small, storage,
 attn-kernel, ssd-kernel, main, kernels-sharded, sharded, dataflow,
 irredundant, fetch-sharded, compressed, distribute, halo-quantize,
-calibrate, h100-target, serve, timing (stencil, fetch, 1s/2s), serve timing: every profiler window that
+calibrate, h100-target, serve, serve-ctx, jamba-smoke, timing (stencil,
+fetch, 1s/2s), serve timing; each serve model is freed before the next
+(olmoe holds 13.8 GB, the VLM 20.2 GB): every profiler window that
 reads host calls and kernels together runs before the timing phases'
 kernel-only windows and graph captures.
 ``--steps`` cuts the time axis of the full-width stencil paths; by
@@ -177,7 +219,9 @@ the port is imported from ``src/`` beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -239,12 +283,17 @@ ATTN_CASES = [  # B, Hq, Hkv, D, S, bs, lengths (None: seeded in 1..S)
     (1, 4, 4, 32, 128, 32, None),
     (3, 16, 1, 64, 192, 64, None),
     (2, 4, 2, 32, 128, 32, [1, 33]),  # the partial final block
-    (8, 16, 8, 128, 2048, 256, [1, 256, 257, 2048, 64, 777, 1024, 1500]),  # qwen3-0.6b
+    (4, 4, 2, 16, 128, 16, [1, 17, 96, 128]),  # jamba's SMOKE through the batcher
+    (8, 16, 16, 128, 2048, 256, [1, 256, 257, 2048, 64, 777, 1024, 1500]),  # olmoe-1b-7b: G 1
+    (4, 16, 16, 64, 768, 256, [513, 576, 600, 1]),  # seamless-m4t-large-v2: G 1, D 64
+    (4, 32, 8, 128, 768, 256, [513, 576, 540, 1]),  # llama-3.2-vision-11b: G 4
+    (8, 16, 8, 128, 2048, 256, [1, 256, 257, 2048, 64, 777, 1024, 1500]),  # qwen3-0.6b (last)
 ]
 SSD_CASES = [  # B, T, H, P, N, chunk; phase 12 adds the serve stream's short prompts
     (2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32), (2, 96, 8, 8, 4, 32),  # the tests'
     (1, 1024, 32, 64, 128, 128), (4, 1024, 32, 64, 128, 128),  # mamba2-370m
     (1, 256, 2, 64, 256, 128),  # the largest state: one staging stage
+    (1, 64, 8, 16, 16, 8),  # jamba's SMOKE: chunk 8
 ]
 #: kernel-vs-plain limits, (rtol, atol): |got - want| <= atol + rtol |want|.  A
 #: bfloat16 output may round the other way from the plain version's, one unit
@@ -252,17 +301,51 @@ SSD_CASES = [  # B, T, H, P, N, chunk; phase 12 adds the serve stream's short pr
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
 SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-3)}
 STATE_TOL = (1e-4, 1e-4)
-SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m")
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "olmoe-1b-7b")
 SERVE_LANES, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_MAX_NEW = 8, 2048, 16, 64
 SERVE_PROMPTS = (64, 1024)  # prompt lengths, seeded uniform, inclusive
+#: the launcher's paths (python -m repro_torch.launch.serve), at full width
+#: and depth: the VLM and the encoder-decoder take context embeddings
+CTX_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-large-v2")
+CTX_BATCH, CTX_PROMPT, CTX_GEN = 4, 512, 64
 CPU_CHECK_PROMPT, CPU_CHECK_STEPS = 128, 4
-#: depths at which the served bfloat16 card run is held to the CPU (the full
-#: depth is added); the check is made at BF16_WITNESS_DEPTH, the others printed
-CPU_CHECK_DEPTHS = (1, 2, 4, 8, 16)
-#: mamba2-370m's 48 random layers amplify bfloat16 rounding (its CPU logits move
-#: 0.14-0.27 between bf16 and f32 compute), so its bf16 witness is a depth cut
-BF16_WITNESS_DEPTH = {"qwen3-0.6b": 28, "mamba2-370m": 4}
+#: the card-vs-CPU check per model: (depths at which the served bfloat16 run
+#: is held to the CPU and printed, the depth whose bf16 error is checked, the
+#: depth of the float32 check).  mamba2-370m's 48 random layers amplify bf16
+#: rounding (its CPU logits move 0.14-0.27 between bf16 and f32 compute), so
+#: its bf16 witness is a depth cut; the later models are checked at a
+#: full-width cut (olmoe: 2 of 16 layers; vision: one 5-layer period of 8;
+#: seamless: 2 encoder and 2 decoder layers of 24 each) — on the host CPU a
+#: full-depth float32 copy would be 28-40 GB of weights
+CPU_CHECK = {
+    "qwen3-0.6b": ((1, 2, 4, 8, 16, 28), 28, 28),
+    "mamba2-370m": ((1, 2, 4, 8, 16, 48), 4, 48),
+    "olmoe-1b-7b": ((2,), 2, 2),
+    "llama-3.2-vision-11b": ((5,), 5, 5),
+    "seamless-m4t-large-v2": ((2,), 2, 2),
+    "jamba-1.5-large-398b": ((8,), 8, 8),  # its SMOKE config, whole
+}
+#: an MoE router's top-k choice is discontinuous: where its k-th and (k+1)-th
+#: probabilities nearly tie, one rounding of the hidden state picks another
+#: expert and moves that token's output by O(1).  So the card-vs-CPU check
+#: runs the CPU with the card's expert choices (its own probabilities at
+#: them) and holds the logits to their limits.  The CPU's own choices are
+#: recorded beside the card's: in float32 every token whose expert set
+#: differs must be a near-tie, the two probabilities within ROUTE_TIE_F32 on
+#: both devices (float32 rounding moves them by ~1e-7); in bfloat16 the
+#: router's input is rounded to 8 bits, the two devices' probabilities
+#: differ by some delta and any pair within 2 delta may swap: those flips
+#: are printed with their margins and deltas, not limited
+ROUTE_TIE_F32 = 1e-5
+#: the cross layers' gate in the card-vs-CPU check of the VLM (its init is 0,
+#: which would hide the cross-attention's output from the logits)
+CHECK_GATE = 0.5
 BF16_LOGIT_TOL = 0.06  # tests/test_archs.py's relative max error
+#: jamba's SMOKE config (attention, Mamba and MoE in one model) through the
+#: batcher in its served bfloat16, card against the same calls on the CPU
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_LANES, JAMBA_MAX_SEQ, JAMBA_REQUESTS, JAMBA_MAX_NEW = 4, 128, 8, 16
+JAMBA_PROMPTS = (8, 96)
 KERNEL_CASES = [  # (program, tile, batch) for the kernel-vs-plain phase
     ("jacobi2d5p", (4, 8, 8), 3), ("jacobi2d5p", (8, 16, 16), 2),
     ("jacobi2d9p", (4, 8, 8), 3), ("jacobi2d9p-gol", (4, 8, 8), 3),
@@ -1656,17 +1739,21 @@ def _serve_cfg(arch: str):
     return dataclasses.replace(get_config(arch), tp=1)
 
 
-def _logits_along(model, prompt: torch.Tensor, toks=None) -> tuple[list, list]:
-    """Prefill ``prompt`` and decode ``CPU_CHECK_STEPS`` tokens (``toks``, or
-    the model's own greedy picks); every step's logits as float32 on the
-    host, and the tokens fed."""
+def _logits_along(model, prompt: torch.Tensor, toks=None, cross_src=None) -> tuple[list, list]:
+    """Prefill ``prompt`` (with the context ``cross_src``, where the model
+    takes one) and decode ``CPU_CHECK_STEPS`` tokens (``toks``, or the
+    model's own greedy picks); every step's logits as float32 on the host,
+    and the tokens fed."""
     from repro_torch.models.lm import lm_decode, lm_prefill
 
     cfg = model.cfg
     # float32 compute keeps its caches in float32 too: a bf16 cache would
     # round card and CPU values that straddle a rounding midpoint apart
     cache_dtype = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
-    logits, caches = lm_prefill(model, prompt.to(model.device), max_seq=cfg.kv_block,
+    if cross_src is not None:
+        cross_src = cross_src.to(model.device)
+    logits, caches = lm_prefill(model, prompt.to(model.device), cross_src=cross_src,
+                                max_seq=prompt.shape[1] + CPU_CHECK_STEPS,
                                 cache_dtype=cache_dtype)
     out, fed = [logits.float().cpu()], []
     for step in range(CPU_CHECK_STEPS):
@@ -1689,59 +1776,154 @@ def _rel_errs(got: list, want: list) -> list[float]:
 
 def _copy(model, cfg, device, n_layers: int):
     """``model``'s weights in a model of ``cfg`` on ``device``, cut to its
-    first ``n_layers`` layers."""
+    first ``n_layers`` layers (an encoder-decoder's encoder too)."""
     from repro_torch.models.lm import LM
 
-    m = LM(dataclasses.replace(cfg, n_layers=n_layers), device=device)
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.is_encdec:
+        cut = dataclasses.replace(cut, enc_layers=min(cfg.enc_layers, n_layers))
+    m = LM(cut, device=device)
     keep = m.state_dict()
     m.load_state_dict({k: v for k, v in model.state_dict().items() if k in keep})
     return m
 
 
-def _cpu_check(model, cfg, rng) -> dict:
-    """One request (prompt 128, 4 decode steps) on the card and through the
-    same port on the CPU with the weights copied over, all runs fed the
-    same tokens.
+def _context(cfg, rng, batch: int, device) -> torch.Tensor | None:
+    """Context embeddings as the launcher draws them (normal * 0.02, bf16),
+    for a model with cross-attention; else None."""
+    if cfg.family not in ("vlm", "encdec"):
+        return None
+    x = rng.normal(size=(batch, cfg.n_context_tokens, cfg.d_model)) * 0.02
+    return torch.as_tensor(x, dtype=torch.bfloat16, device=device)
 
-    float32 compute and caches (bf16 values are exact in float32), full
-    depth: card against CPU within 1e-3 relative (only summation order
-    differs).  The served bfloat16: card against CPU within 0.06 at
-    ``BF16_WITNESS_DEPTH`` layers (the same weights, the model cut after
-    them); the errors at ``CPU_CHECK_DEPTHS`` and the full depth, and the
-    CPU's own bf16-against-float32 spread at each, are printed beside it."""
+
+@contextlib.contextmanager
+def _routes(card: list | None = None):
+    """Record every MoE call's top-k choice and its margin (k-th minus
+    (k+1)-th probability) into the yielded list, in call order; with
+    ``card`` (such a list from the card), the calls use the card's choices
+    instead of their own (the probabilities stay their own)."""
+    from repro_torch.models import moe as moe_mod
+
+    own = moe_mod.top_k
+    log: list = []
+
+    def top_k(probs, k):
+        vals, idx = own(probs, k)
+        srt = torch.sort(probs, dim=-1, descending=True, stable=True).values
+        margin = (srt[..., k - 1] - srt[..., k] if k < probs.shape[-1]
+                  else torch.full_like(srt[..., 0], math.inf))
+        log.append((idx.cpu(), margin.float().cpu(), probs.float().cpu()))
+        if card is not None:
+            idx = card[len(log) - 1][0].to(probs.device)
+            vals = probs.gather(-1, idx)
+        return vals, idx
+
+    moe_mod.top_k = top_k
+    try:
+        yield log
+    finally:
+        moe_mod.top_k = own
+
+
+def _route_flips(card: list, cpu: list) -> list[tuple[float, float]]:
+    """The tokens whose top-k expert set differs between the card's choices
+    and the CPU's own (made with the card's choices upstream): for each,
+    the larger of the two margins and the largest difference between the
+    two devices' router probabilities for that token."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} MoE calls on the card, {len(cpu)} on the CPU")
+    flips = []
+    for (ia, ma, pa), (ib, mb, pb) in zip(card, cpu):
+        differ = ~(ia.sort(-1).values == ib.sort(-1).values).all(-1)
+        delta = (pa - pb).abs().amax(-1)
+        flips += list(zip(torch.maximum(ma, mb)[differ].tolist(), delta[differ].tolist()))
+    return flips
+
+
+def _flips_text(flips: list) -> str:
+    return (f"{len(flips)} token(s)" + ("" if not flips else
+            f", largest margin {max(m for m, _ in flips)!r}, largest probability delta "
+            f"{max(d for _, d in flips)!r}"))
+
+
+def _cpu_check(model, cfg, rng) -> dict:
+    """One request (prompt 128, 4 decode steps; the model's full context
+    where it takes one) on the card and through the same port on the CPU
+    with the weights copied over, all runs fed the same tokens.
+
+    float32 compute and caches (bf16 values are exact in float32) at the
+    float32 depth of ``CPU_CHECK``: card against CPU within 1e-3 relative
+    (only summation order differs).  The served bfloat16: card against CPU
+    within 0.06 at the witness depth (the same weights, the model cut after
+    them); the errors at the other depths, and the CPU's own
+    bf16-against-float32 spread at each, are printed beside it.  With
+    experts, each CPU run takes the card run's expert choices; in float32
+    the CPU's own choices may differ from them only at near-ties
+    (``ROUTE_TIE_F32``), in bfloat16 the differing ones are printed."""
     t0 = time.perf_counter()
-    full, witness = cfg.n_layers, BF16_WITNESS_DEPTH[cfg.name]
+    depths, witness, d32 = CPU_CHECK[cfg.name]
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, CPU_CHECK_PROMPT)))
-    card16, toks = _logits_along(model, prompt)
-    e16, spread = {}, {}
-    for d in sorted({d for d in CPU_CHECK_DEPTHS if d < full} | {witness, full}):
-        card = card16 if d == full else _logits_along(_copy(model, cfg, model.device, d),
-                                                      prompt, toks)[0]
-        cpu16 = _logits_along(_copy(model, cfg, "cpu", d), prompt, toks)[0]
-        cpu32 = _logits_along(_copy(model, cfg32, "cpu", d), prompt, toks)[0]
+    src = _context(cfg, rng, 1, "cpu")
+    full = cfg.n_layers
+    with _routes() as routes_full:
+        card16, toks = _logits_along(model, prompt, cross_src=src)
+    e16, spread, flips16 = {}, {}, []
+    for d in sorted(set(depths) | {witness, d32}):
+        if d == full:
+            card, routes = card16, routes_full
+        else:
+            with _routes() as routes:
+                card = _logits_along(_copy(model, cfg, model.device, d), prompt, toks, src)[0]
+        with _routes(routes) as own:
+            cpu16 = _logits_along(_copy(model, cfg, "cpu", d), prompt, toks, src)[0]
+        flips16 += _route_flips(routes, own)
+        if d == d32:
+            with _routes() as routes:
+                card32 = _logits_along(_copy(model, cfg32, model.device, d), prompt, toks, src)[0]
+            with _routes(routes) as own:
+                cpu32 = _logits_along(_copy(model, cfg32, "cpu", d), prompt, toks, src)[0]
+            flips32 = _route_flips(routes, own)
+            e32 = _rel_errs(card32, cpu32)
+        else:
+            cpu32 = _logits_along(_copy(model, cfg32, "cpu", d), prompt, toks, src)[0]
         e16[d], spread[d] = max(_rel_errs(card, cpu16)), max(_rel_errs(cpu16, cpu32))
-    card32 = _logits_along(_copy(model, cfg32, model.device, full), prompt, toks)[0]
-    e32 = _rel_errs(card32, cpu32)  # cpu32: the last depth, the full one
+    ctx = "" if src is None else f", context {tuple(src.shape)}"
+    moe = "" if not cfg.moe_experts else (
+        f"; the CPU ran the card's expert choices, its own differ in float32 for "
+        f"{_flips_text(flips32)} (margin limit {ROUTE_TIE_F32}), in bfloat16 for "
+        f"{_flips_text(flips16)}")
     log(f"[serve] {cfg.name}: card vs CPU (same port, weights copied), prompt "
-        f"{CPU_CHECK_PROMPT} + {CPU_CHECK_STEPS} decode steps, relative max logit error: "
-        f"float32 compute, {full} layers, per step {e32} (limit 1e-3); bfloat16 by depth "
-        f"(layers: max over steps) {e16} (limit {BF16_LOGIT_TOL} at {witness} layers); the "
-        f"CPU's own bfloat16 vs float32 spread by depth {spread}; "
+        f"{CPU_CHECK_PROMPT} + {CPU_CHECK_STEPS} decode steps{ctx}, relative max logit error: "
+        f"float32 compute, {d32} of {full} layers, per step {e32} (limit 1e-3); bfloat16 by "
+        f"depth (layers: max over steps) {e16} (limit {BF16_LOGIT_TOL} at {witness} layers); "
+        f"the CPU's own bfloat16 vs float32 spread by depth {spread}{moe}; "
         f"{time.perf_counter() - t0:.1f} s")
     if not max(e32) < 1e-3:
         raise AssertionError(f"{cfg.name}: float32 card and CPU logits differ by {max(e32)!r}")
     if not e16[witness] < BF16_LOGIT_TOL:
         raise AssertionError(f"{cfg.name}: bfloat16 card and CPU logits differ by "
                              f"{e16[witness]!r} at {witness} layers")
-    return {"bf16": e16[witness], "bf16_depth": witness, "f32": max(e32)}
+    if not all(m < ROUTE_TIE_F32 for m, _ in flips32):
+        raise AssertionError(f"{cfg.name}: float32 card and CPU chose other experts at "
+                             f"(margin, delta) {flips32}")
+    return {"bf16": e16[witness], "bf16_depth": witness, "f32": max(e32), "f32_depth": d32,
+            "route_flips": (len(flips32), len(flips16))}
 
 
-def _profile_decode(model, caches, B: int, n_ticks: int = 4) -> None:
+def _free() -> None:
+    """Return the last phase's model and caches to the card before the next."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _profile_decode(model, caches, B: int, n_ticks: int = 4) -> dict | None:
     """Device time by kernel over a few decode ticks at full occupancy
     (every lane at position ``SERVE_MAX_SEQ // 2``), from ``torch.profiler``.
     Only the kernel rows are summed: an operator's row repeats the time of
-    the kernels it launched."""
+    the kernels it launched.  Returns the wall and device-busy ms per tick
+    (None when the profiler saw no kernel time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1764,12 +1946,23 @@ def _profile_decode(model, caches, B: int, n_ticks: int = 4) -> None:
     if not rows:
         log(f"[serve] {model.cfg.name}: profiler saw no kernel time over {n_ticks} decode ticks "
             f"({wall * 1e3:.3f} ms wall): device busy share not measured")
-        return
+        return None
     log(f"[serve] {model.cfg.name}: profiler over {n_ticks} decode ticks (B={B}, position "
         f"{SERVE_MAX_SEQ // 2}): wall {wall * 1e3:.3f} ms, kernels {sum(r[2] for r in rows)} "
         f"launches, device busy {busy_us / 1e3:.3f} ms ({busy_us / 1e6 / wall:.1%}; idle "
         f"{1 - busy_us / 1e6 / wall:.1%}); top kernels by device time: "
         + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms ({t / busy_us:.1%}) x{c}" for k, t, c in rows[:6]))
+    return {"wall_ms": wall * 1e3 / n_ticks, "busy_ms": busy_us / 1e3 / n_ticks}
+
+
+def _dense_expert_bound(cfg) -> tuple[float, float]:
+    """(bytes, ms): the expert weights one decode tick reads under the
+    reference's dense dispatch (every expert of every MoE layer, for any
+    number of routed tokens) over the card's memory rate."""
+    n_moe = cfg.n_periods * len(cfg.moe_positions)
+    esize = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
+    nbytes = n_moe * cfg.moe_experts * 3 * cfg.d_model * cfg.expert_d_ff * esize
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
 
 
 def phase_serve(device, arch: str) -> dict:
@@ -1827,7 +2020,7 @@ def phase_serve(device, arch: str) -> dict:
         scheduler.lm_prefill, scheduler.lm_decode = prefill_fn, decode_fn
     peak = torch.cuda.max_memory_allocated()
     n_decode = len(decode_positions)
-    n_attn = cfg.period.count("attn") * cfg.n_periods
+    n_attn = _self_attention_layers(cfg)
     n_mamba = cfg.period.count("mamba") * cfg.n_periods
     prefill_s = sum(s.dur for s in rec.find("admit", cat="serve"))
     decode_s = sum(s.dur for s in rec.find("step", cat="serve")) - prefill_s
@@ -1851,10 +2044,199 @@ def phase_serve(device, arch: str) -> dict:
         raise AssertionError(f"{arch}: {launches['ssd_scan']} ssd_scan launches for "
                              f"{len(reqs)} prefills x {n_mamba} mamba layers")
     err = _cpu_check(model, cfg, rng)
-    _profile_decode(model, cb.caches, cb.lanes)
+    tick = _profile_decode(model, cb.caches, cb.lanes)
+    if cfg.moe_experts:
+        nbytes, bound = _dense_expert_bound(cfg)
+        window = ("not measured" if tick is None else
+                  f"{tick['wall_ms']:.3f} ms wall, device busy {tick['busy_ms']:.3f} ms")
+        log(f"[serve] {arch}: decode tick against the dense-expert bound: the reference's dense "
+            f"dispatch reads every expert's weights each tick, {nbytes} B "
+            f"({nbytes / 1e9:.2f} GB) / {PEAK_BYTES_PER_S / 1e12:.2f} TB/s = {bound:.3f} ms; "
+            f"measured per tick {decode_s / n_decode * 1e3:.3f} ms (serve stream, host clock), "
+            f"profiled window per tick {window}")
     mid = decode_positions[n_decode // 2] + 1  # the valid prefix of a mid-run tick
     return {"launches": launches, "decode_lengths": mid, "cpu_err": err,
-            "prompt_lens": lens}
+            "prompt_lens": lens, "ticks": n_decode}
+
+
+def _self_attention_layers(cfg) -> int:
+    """Layers whose decode step runs ``decode_attention`` (``attn`` and the
+    decoder's ``dec``; a ``cross`` layer reads its context in plain PyTorch)."""
+    return (cfg.period.count("attn") + cfg.period.count("dec")) * cfg.n_periods
+
+
+def phase_serve_ctx(device, arch: str) -> dict:
+    """Slice 8's context paths, as a user runs them: ``python -m
+    repro_torch.launch.serve`` (its ``main``) at full width and depth with
+    batch ``CTX_BATCH``, prompts of ``CTX_PROMPT`` tokens, ``CTX_GEN`` new
+    tokens, ``--seed 0``; then the card-vs-CPU check at a full-width cut."""
+    from repro_torch.kernels.block_attention import decode_attention
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.lm import init_lm
+
+    cfg = _serve_cfg(arch)
+    batch, prompt, gen = CTX_BATCH, CTX_PROMPT, CTX_GEN
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt), "--gen", str(gen),
+            "--seed", str(SEED)]
+    finite, n_decode = [], [0]
+
+    def watch(fn, counts: bool):
+        def wrapped(*args, **kwargs):
+            logits, caches = fn(*args, **kwargs)
+            finite.append(torch.isfinite(logits).all())
+            n_decode[0] += counts
+            return logits, caches
+        return wrapped
+
+    log(f"[serve-ctx] {arch} (tp=1): {cfg.n_layers} layers ({cfg.period} x {cfg.n_periods}), "
+        f"{cfg.enc_layers} encoder layers, d_model {cfg.d_model}, context "
+        f"{cfg.n_context_tokens} x {cfg.d_model}, {cfg.param_count()} parameters (analytic); "
+        f"launcher argv {argv}")
+    prefill_fn, decode_fn = launcher.lm_prefill, launcher.lm_decode
+    launcher.lm_prefill, launcher.lm_decode = watch(prefill_fn, False), watch(decode_fn, True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        decode_attention.launches = ssd_scan.launches = 0
+        t0 = time.perf_counter()
+        out = launcher.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"decode_attention": decode_attention.launches,
+                    "ssd_scan": ssd_scan.launches}
+    finally:
+        launcher.lm_prefill, launcher.lm_decode = prefill_fn, decode_fn
+    peak = torch.cuda.max_memory_allocated()
+    _free()
+    n_self = _self_attention_layers(cfg)
+    log(f"[serve-ctx] {arch}: {wall:.3f} s wall (init included); prefill {batch}x{prompt} "
+        f"tokens in {out['prefill_s']:.3f} s ({batch * prompt / out['prefill_s']:.1f} tokens/s); "
+        f"decode {batch}x{gen} tokens in {out['decode_s']:.3f} s "
+        f"({batch * gen / out['decode_s']:.1f} tokens/s, {n_decode[0]} lm_decode steps); "
+        f"launches {launches}; max_memory_allocated {peak / 2**30:.3f} GiB, of which "
+        f"{held / 2**30:.3f} GiB held before the run")
+    if out["tokens"].shape != (batch, gen) or not all(bool(f) for f in finite):
+        raise AssertionError(f"{arch}: tokens {out['tokens'].shape} or non-finite logits")
+    if n_decode[0] != gen - 1 or launches["decode_attention"] != n_self * (gen - 1):
+        raise AssertionError(f"{arch}: {launches['decode_attention']} decode_attention launches "
+                             f"for {n_decode[0]} decode steps x {n_self} self-attention layers")
+    if launches["ssd_scan"]:
+        raise AssertionError(f"{arch}: ssd_scan launched {launches['ssd_scan']} times")
+    depth = CPU_CHECK[arch][2]
+    cut = dataclasses.replace(cfg, n_layers=depth, enc_layers=min(cfg.enc_layers, depth))
+    model = init_lm(cut, generator=torch.Generator(device).manual_seed(SEED), device=device)
+    with torch.no_grad():
+        for block in model.layers:
+            if block.kind == "cross":
+                block.gate.fill_(CHECK_GATE)
+    err = _cpu_check(model, cut, np.random.default_rng(SEED))
+    del model
+    _free()
+    return {"launches": launches, "decode_steps": n_decode[0], "cpu_err": err}
+
+
+def phase_jamba_smoke(device) -> dict:
+    """jamba's SMOKE config (attention, Mamba and MoE layers) through the
+    ``ContinuousBatcher`` on the card, in the served bfloat16; every
+    prefill, splice and decode call it made is then replayed on the CPU with
+    the weights copied over and the card's tokens and expert choices fed,
+    and each call's logits are held to the card's within 0.06 relative (the
+    CPU's own expert choices are printed beside the card's; see
+    ``ROUTE_TIE_F32``).
+    Then ``_cpu_check`` on the same weights: float32 compute and caches
+    within 1e-3, bfloat16 within 0.06.  (A float32-compute batcher keeps
+    bfloat16 caches, whose values the card and the CPU round apart at
+    midpoints; through seven Mamba layers' conv tails and states those
+    differences compound over the decode steps.)"""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.block_attention import decode_attention
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models.lm import init_caches, init_lm, lm_decode, lm_prefill
+    from repro_torch.serve import scheduler
+    from repro_torch.serve.scheduler import ContinuousBatcher, Request
+
+    cfg = get_smoke_config(JAMBA)
+    model = init_lm(cfg, generator=torch.Generator(device).manual_seed(SEED), device=device)
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(JAMBA_PROMPTS[0], JAMBA_PROMPTS[1] + 1, size=JAMBA_REQUESTS)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, size=int(n)), JAMBA_MAX_NEW)
+            for i, n in enumerate(lens)]
+    calls = []
+    prefill_fn, decode_fn, splice_fn = scheduler.lm_prefill, scheduler.lm_decode, scheduler._splice
+
+    def prefill(m, prompt, **kw):
+        logits, caches = prefill_fn(m, prompt, **kw)
+        calls.append(("prefill", prompt.cpu().clone(), logits.float().cpu()))
+        return logits, caches
+
+    def decode(m, caches, token, position):
+        logits, caches = decode_fn(m, caches, token, position)
+        # copies: the batcher's token and position arrays change in place
+        calls.append(("decode", torch.as_tensor(token).cpu().clone(), np.array(position),
+                      logits.float().cpu()))
+        return logits, caches
+
+    def splice(dst, lane, src):
+        calls.append(("splice", lane))
+        splice_fn(dst, lane, src)
+
+    cb = ContinuousBatcher(model, lanes=JAMBA_LANES, max_seq=JAMBA_MAX_SEQ)
+    for r in reqs:
+        cb.submit(r)
+    scheduler.lm_prefill, scheduler.lm_decode, scheduler._splice = prefill, decode, splice
+    try:
+        torch.cuda.synchronize()
+        decode_attention.launches = ssd_scan.launches = 0
+        with _routes() as routes:
+            cb.run()
+        torch.cuda.synchronize()
+        launches = {"decode_attention": decode_attention.launches,
+                    "ssd_scan": ssd_scan.launches}
+    finally:
+        scheduler.lm_prefill, scheduler.lm_decode, scheduler._splice = (prefill_fn, decode_fn,
+                                                                        splice_fn)
+    cpu = _copy(model, cfg, "cpu", cfg.n_layers)
+    caches, pending = init_caches(cfg, JAMBA_LANES, JAMBA_MAX_SEQ, device="cpu"), None
+    prefill_errs, decode_errs = [], []
+    with _routes(routes) as own:
+        for call in calls:
+            if call[0] == "prefill":
+                logits, pending = lm_prefill(cpu, call[1], max_seq=JAMBA_MAX_SEQ)
+                prefill_errs += _rel_errs([call[2]], [logits.float()])
+            elif call[0] == "splice":
+                splice_fn(caches, call[1], pending)
+            else:
+                logits, _ = lm_decode(cpu, caches, call[1], call[2])
+                decode_errs += _rel_errs([call[3]], [logits.float()])
+    flips = _route_flips(routes, own)
+    errs = prefill_errs + decode_errs
+    ticks = sum(c[0] == "decode" for c in calls)
+    n_attn, n_mamba = _self_attention_layers(cfg), cfg.period.count("mamba") * cfg.n_periods
+    log(f"[jamba-smoke] {cfg.name} SMOKE ({cfg.n_layers} layers {cfg.period}, MoE at "
+        f"{cfg.moe_positions}, {cfg.moe_experts} experts top-{cfg.moe_top_k}, d_model "
+        f"{cfg.d_model}), {cfg.compute_dtype} compute: {len(reqs)} requests (prompts "
+        f"{lens.tolist()}), {JAMBA_LANES} lanes, max_seq {JAMBA_MAX_SEQ}, {JAMBA_MAX_NEW} new "
+        f"each: {ticks} decode ticks, launches {launches}; card vs CPU replay of its "
+        f"{len(errs)} prefill/decode calls (the card's expert choices), relative max logit "
+        f"error {max(errs)!r} (limit {BF16_LOGIT_TOL}; prefills {max(prefill_errs)!r}, the "
+        f"decode ticks in order, every 5th: {[round(e, 6) for e in decode_errs[::5]]}); "
+        f"the CPU's own expert choices differ for {_flips_text(flips)}")
+    err = _cpu_check(model, cfg, rng)
+    del model, cb, cpu
+    _free()
+    if not all(r.done and len(r.out) == JAMBA_MAX_NEW for r in reqs):
+        raise AssertionError(f"jamba SMOKE: not every request finished with {JAMBA_MAX_NEW} tokens")
+    if launches["decode_attention"] != n_attn * ticks:
+        raise AssertionError(f"jamba SMOKE: {launches['decode_attention']} decode_attention "
+                             f"launches for {ticks} ticks x {n_attn} attention layers")
+    if launches["ssd_scan"] != n_mamba * len(reqs):
+        raise AssertionError(f"jamba SMOKE: {launches['ssd_scan']} ssd_scan launches for "
+                             f"{len(reqs)} prefills x {n_mamba} mamba layers")
+    if not max(errs) < BF16_LOGIT_TOL:
+        raise AssertionError(f"jamba SMOKE: card and CPU logits differ by {max(errs)!r}")
+    return {"launches": launches, "ticks": ticks, "err": max(errs), "cpu_err": err}
 
 
 def _attn_bound(lengths: torch.Tensor, Hq: int, Hkv: int, D: int, esize: int,
@@ -2049,7 +2431,12 @@ def main() -> int:
     phase_halo_quantize(device)
     phase_calibrate(device, smi)
     h100_run = phase_h100_target(device, cut(H100_SPACE))
-    runs = {arch: phase_serve(device, arch) for arch in SERVE_ARCHS}
+    runs = {}
+    for arch in SERVE_ARCHS:
+        runs[arch] = phase_serve(device, arch)
+        _free()  # the model (olmoe: 13.8 GB) goes before the next
+    ctx_runs = {arch: phase_serve_ctx(device, arch) for arch in CTX_ARCHS}
+    jamba_run = phase_jamba_smoke(device)
     rows = phase_timing(device, main_run, irr_run)
     fetch_row = phase_fetch_timing(irr_run)
     sharded_rows = phase_sharded_timing(device, main_run, irr_run, fetch_row,
@@ -2114,6 +2501,10 @@ def main() -> int:
         f"{irr_run['launches']['stencil_tiles']}, [h100-target] {h100_run['launches']}; "
         f"facet_fetch [irredundant] "
         f"{irr_run['launches']['facet_fetch']}, [fetch-sharded] {fetch_sharded_run['launches']}")
+    paths = {**runs, **ctx_runs, f"{JAMBA} SMOKE": jamba_run}
+    log("[done] launches per serve path: " + "; ".join(
+        f"{name} decode_attention {r['launches']['decode_attention']}, ssd_scan "
+        f"{r['launches']['ssd_scan']}" for name, r in paths.items()))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

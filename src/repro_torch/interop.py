@@ -55,8 +55,12 @@ def lm_from_numpy(cfg, params: Mapping[str, Any], device: "torch.device | str" =
     ``params`` is the reference's ``init_lm`` pytree with numpy leaves
     (``jax.tree.map(np.asarray, params)``): ``embed``, ``final_norm`` and
     ``periods``, whose leaves carry a leading ``n_periods`` axis — period
-    ``p``'s position ``i`` becomes layer ``p * len(cfg.period) + i``.  A
-    norm's ``{"scale": s}`` becomes one parameter.  Matrices are rounded to
+    ``p``'s position ``i`` becomes layer ``p * len(cfg.period) + i`` (with
+    its ``gate``, ``norm_x``, ``cross`` and MoE ``ffn`` leaves where the
+    layer has them) — and, for an encoder-decoder, ``encoder``: its
+    ``layers`` carry a leading ``enc_layers`` axis (layer ``j`` becomes
+    ``encoder.layers.j``) beside its ``final_norm``.  A norm's
+    ``{"scale": s}`` becomes one parameter.  Matrices are rounded to
     the compute dtype as the reference's per-call cast rounds them.  Every
     parameter of the port must be set by exactly one leaf, and every leaf
     must set one."""
@@ -89,6 +93,9 @@ def lm_from_numpy(cfg, params: Mapping[str, Any], device: "torch.device | str" =
                 i = int(path[1].removeprefix("pos"))
                 for p in range(cfg.n_periods):
                     put(".".join(("layers", str(p * len(cfg.period) + i)) + path[2:]), arr[p])
+            elif path[:2] == ("encoder", "layers"):
+                for j in range(cfg.enc_layers):
+                    put(".".join(("encoder", "layers", str(j)) + path[2:]), arr[j])
             else:
                 put(".".join(path), arr)
 

@@ -6,8 +6,12 @@
 
 Runs on the CUDA device unless ``--device cpu`` is given.  Weights are
 random, drawn from ``--seed`` with a ``torch.Generator`` on the device;
-prompts come from ``numpy.random.default_rng(seed)``; temperature sampling
-draws from its own seeded ``torch.Generator``.
+prompts come from ``numpy.random.default_rng(seed)``, and after them, for
+the VLM and encoder-decoder families, the context embeddings the stub
+frontend would give (``normal(size=(batch, n_context_tokens, d_model)) *
+0.02`` in bfloat16, as the reference draws them), which ``lm_prefill``
+takes as ``cross_src``; temperature sampling draws from its own seeded
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -52,6 +56,11 @@ def main(argv: list[str] | None = None) -> dict:
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len)), device=device)
+    ctx = None
+    if cfg.family in ("vlm", "encdec"):  # the stub frontends' patch / frame embeddings
+        ctx = torch.as_tensor(
+            rng.normal(size=(args.batch, cfg.n_context_tokens, cfg.d_model)) * 0.02,
+            dtype=torch.bfloat16, device=device)
     sampler = torch.Generator(device).manual_seed(args.seed + 1)
 
     def pick(logits):
@@ -65,7 +74,7 @@ def main(argv: list[str] | None = None) -> dict:
         return torch.multinomial(torch.softmax(lv, -1), 1, generator=sampler)[:, 0]
 
     t0 = time.perf_counter()
-    logits, caches = lm_prefill(model, prompts, max_seq=max_seq)
+    logits, caches = lm_prefill(model, prompts, cross_src=ctx, max_seq=max_seq)
     _sync(device)
     t1 = time.perf_counter()
 

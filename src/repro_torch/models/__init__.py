@@ -1,2 +1,3 @@
-"""Language-model stack of the port (dense and SSM families): configuration,
-layers, Mamba2, blocks and the LM entry points."""
+"""Language-model stack of the port (every family of the model zoo: dense,
+MoE, SSM, hybrid, VLM and encoder-decoder): configuration, layers, Mamba2,
+MoE, blocks and the LM entry points."""

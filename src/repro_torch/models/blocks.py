@@ -1,16 +1,23 @@
 """Layer blocks: one pre-norm residual position of the reference's period
 (the port of ``repro/models/blocks.py``).
 
-Layer kinds ported: ``attn`` (causal self-attention + FFN) and ``mamba``
-(SSD mixer, with no FFN in a pure-SSM LM).  FFN kinds ported: ``mlp``
-(SwiGLU) and ``none``.  ``moe``, ``cross`` and ``dec`` raise
-``NotImplementedError``: they wait for the MoE and cross/dec + encoder
-slices of the port.
+Layer kinds:
+
+* ``attn``  — causal self-attention (+ FFN),
+* ``mamba`` — SSD mixer (+ FFN; none in a pure-SSM LM),
+* ``cross`` — cross-attention to a static context (VLM image layers), its
+  output scaled by ``tanh(gate)`` (a float32 scalar that starts at 0),
+* ``dec``   — self-attention + cross-attention (encoder-decoder decoder
+  layers).
+
+FFN kinds: ``mlp`` (SwiGLU), ``moe`` (top-k experts), ``none``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.core.cfa.api import resolve_device
 
 from .config import ArchConfig
 from .layers import (
@@ -20,24 +27,16 @@ from .layers import (
     _param,
     attention,
     decode_attention_blocks,
+    decode_cross_attention,
     mlp,
     rms_norm,
 )
 from .mamba2 import Mamba2, MambaCache, mamba_decode, mamba_prefill, mamba_train
+from .moe import MoE, moe
 
-__all__ = ["Block", "ffn_kind", "init_position", "cache_position", "apply_position",
-           "check_supported"]
+__all__ = ["Block", "ffn_kind", "init_position", "cache_position", "apply_position"]
 
-_LATER = {
-    "moe": "the MoE slice",
-    "cross": "the cross-attention (VLM) slice",
-    "dec": "the encoder-decoder slice",
-}
-
-
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; it waits for {_LATER[what]}")
+_KINDS = ("attn", "mamba", "cross", "dec")
 
 
 def ffn_kind(cfg: ArchConfig, pos: int) -> str:
@@ -48,35 +47,28 @@ def ffn_kind(cfg: ArchConfig, pos: int) -> str:
     return "mlp"
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration this port cannot
-    run yet (experts, cross-attention, encoder-decoder)."""
-    for i, kind in enumerate(cfg.period):
-        if kind not in ("attn", "mamba"):
-            raise _unsupported(kind)
-        if ffn_kind(cfg, i) == "moe":
-            raise _unsupported("moe")
-    if cfg.is_encdec:
-        raise _unsupported("dec")
-
-
 class Block(nn.Module):
-    """One period position: ``norm1`` + mixer, then ``norm2`` + FFN unless
-    the FFN kind is ``none``."""
+    """One period position: ``norm1`` + mixer (``cross``: + ``gate``;
+    ``dec``: + ``norm_x`` and the ``cross`` attention), then ``norm2`` + FFN
+    unless the FFN kind is ``none``."""
 
     def __init__(self, kind: str, fk: str, cfg: ArchConfig, *, device=None, generator=None):
         super().__init__()
-        if kind not in ("attn", "mamba"):
-            raise _unsupported(kind)
-        if fk == "moe":
-            raise _unsupported("moe")
+        if kind not in _KINDS:
+            raise ValueError(kind)
         self.kind, self.fk, self.cfg = kind, fk, cfg
         self.norm1 = _param(torch.ones(cfg.d_model, device=device))
-        mixer = Attention if kind == "attn" else Mamba2
+        mixer = Mamba2 if kind == "mamba" else Attention
         self.mixer = mixer(cfg, device=device, generator=generator)
+        if kind == "cross":
+            self.gate = _param(torch.zeros((), device=device))
+        if kind == "dec":
+            self.norm_x = _param(torch.ones(cfg.d_model, device=device))
+            self.cross = Attention(cfg, device=device, generator=generator)
         if fk != "none":
             self.norm2 = _param(torch.ones(cfg.d_model, device=device))
-            self.ffn = MLP(cfg, device=device, generator=generator)
+            ffn = MoE if fk == "moe" else MLP
+            self.ffn = ffn(cfg, device=device, generator=generator)
 
 
 def init_position(kind: str, fk: str, cfg: ArchConfig, *, generator=None,
@@ -87,14 +79,58 @@ def init_position(kind: str, fk: str, cfg: ArchConfig, *, generator=None,
 
 
 def cache_position(kind: str, cfg: ArchConfig, batch: int, seq: int,
-                   dtype=torch.bfloat16, device="cuda") -> dict:
+                   dtype=torch.bfloat16, device="cuda", *, src_len: int = 0) -> dict:
     """Zero-initialised decode cache slot for one layer, on the CUDA device
-    unless the caller asks for the CPU."""
-    if kind == "attn":
-        return {"kv": KVCache.zeros(cfg, batch, seq, dtype, device)}
+    unless the caller asks for the CPU: ``kv`` (self-attention), ``ssm``
+    (Mamba) and, for ``cross``/``dec``, the context's K/V ``cross_k`` /
+    ``cross_v`` (B, src_len, stored_kv_heads, Dh)."""
+    if kind not in _KINDS:
+        raise ValueError(kind)
+    slot: dict = {}
+    if kind in ("attn", "dec"):
+        slot["kv"] = KVCache.zeros(cfg, batch, seq, dtype, device)
     if kind == "mamba":
-        return {"ssm": MambaCache.zeros(cfg, batch, dtype, device)}
-    raise _unsupported(kind)
+        slot["ssm"] = MambaCache.zeros(cfg, batch, dtype, device)
+    if kind in ("cross", "dec"):
+        shape = (batch, src_len, cfg.stored_kv_heads, cfg.head_dim)
+        device = resolve_device(device)
+        slot["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        slot["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return slot
+
+
+def _cross_kv(m: Attention, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The context's K/V for decode cross-attention (no RoPE)."""
+    sc = src.to(m.wk.dtype)
+    k = torch.einsum("bsd,dhk->bshk", sc, m.wk)
+    v = torch.einsum("bsd,dhk->bshk", sc, m.wv)
+    if m.cfg.qk_norm:
+        k = rms_norm(k, m.k_norm)
+    return k, v
+
+
+def _cross(m: Attention, h, mode: str, cache: dict | None, ctx: dict) -> torch.Tensor:
+    """Cross-attention of ``h`` to the context: over the K/V stored in the
+    cache slot when decoding, else over ``ctx["cross_src"]`` (whose K/V a
+    prefill stores in the slot, in place)."""
+    if mode == "decode":
+        return decode_cross_attention(m, h, cache["cross_k"], cache["cross_v"])
+    src = ctx["cross_src"]
+    y, _ = attention(m, h, kv_x=src, causal=False, rope=False)
+    if mode == "prefill":
+        k, v = _cross_kv(m, src)
+        cache["cross_k"].copy_(k)
+        cache["cross_v"].copy_(v)
+    return y
+
+
+def _self(m: Attention, h, mode: str, cache: dict | None, ctx: dict) -> torch.Tensor:
+    if mode == "decode":
+        y, _ = decode_attention_blocks(m, h, cache["kv"], ctx["decode_pos"])
+    else:
+        y, _ = attention(m, h, positions=ctx.get("positions"),
+                         cache=cache["kv"] if mode == "prefill" else None)
+    return y
 
 
 def apply_position(
@@ -103,24 +139,35 @@ def apply_position(
     mode: str,  # train | prefill | decode
     cache: dict | None,
     ctx: dict,
-) -> tuple[torch.Tensor, dict | None]:
-    """Apply one layer.  Returns (x, cache slot): in prefill and decode the
-    slot is ``cache``, updated in place; in train it is None."""
+) -> tuple[torch.Tensor, dict | None, "torch.Tensor | float"]:
+    """Apply one layer.  Returns (x, cache slot, aux loss): in prefill and
+    decode the slot is ``cache``, updated in place; in train it is None.
+    The aux loss is the MoE's load-balance loss (a float32 0-d tensor), else
+    0.0 (no launch on the card for layers without experts)."""
+    aux = 0.0
     h = rms_norm(x, block.norm1)
     if block.kind == "attn":
-        if mode == "decode":
-            y, _ = decode_attention_blocks(block.mixer, h, cache["kv"], ctx["decode_pos"])
-        else:
-            y, _ = attention(block.mixer, h, positions=ctx.get("positions"),
-                             cache=cache["kv"] if mode == "prefill" else None)
-    else:
+        x = x + _self(block.mixer, h, mode, cache, ctx)
+    elif block.kind == "mamba":
         if mode == "decode":
             y, _ = mamba_decode(block.mixer, h, cache["ssm"])
         elif mode == "prefill":
             y, _ = mamba_prefill(block.mixer, h, cache["ssm"])
         else:
             y = mamba_train(block.mixer, h)
-    x = x + y
+        x = x + y
+    elif block.kind == "cross":
+        y = _cross(block.mixer, h, mode, cache, ctx)
+        x = x + torch.tanh(block.gate).to(y.dtype) * y
+    else:  # dec
+        y = _self(block.mixer, h, mode, cache, ctx)
+        hx = rms_norm(x + y, block.norm_x)
+        x = x + y + _cross(block.cross, hx, mode, cache, ctx)
     if block.fk != "none":
-        x = x + mlp(block.ffn, rms_norm(x, block.norm2))
-    return x, (cache if mode != "train" else None)
+        h2 = rms_norm(x, block.norm2)
+        if block.fk == "moe":
+            y2, aux = moe(block.ffn, h2)
+        else:
+            y2 = mlp(block.ffn, h2)
+        x = x + y2
+    return x, (cache if mode != "train" else None), aux

@@ -4,15 +4,19 @@ of ``repro/models/layers.py`` for inference.
 
 Each layer is an ``nn.Module`` holding its weights (``Attention``, ``MLP``,
 ``Embedding``) plus a module-level function under the reference's name
-(``attention``, ``decode_attention_blocks``, ``mlp``, ``embed``,
-``unembed``), so each has a counterpart to find.  Weights used in matrix
-products are kept in the configuration's compute dtype, cast once at load
-time (the reference casts its float32 parameters per call, which gives the
-same values); norm scales stay float32.  Prefill attention is the
-reference's flash-style chunked attention in plain PyTorch (f32 online
-softmax, no (S, S) tensor); decode attention appends the new token's K/V to
-the block cache in place and runs the hand-written ``decode_attention``
-kernel (its plain version on the CPU).
+(``attention``, ``decode_attention_blocks``, ``decode_cross_attention``,
+``mlp``, ``embed``, ``unembed``), so each has a counterpart to find.
+Weights used in matrix products are kept in the configuration's compute
+dtype, cast once at load time (the reference casts its float32 parameters
+per call, which gives the same values); norm scales stay float32.
+
+Prefill attention (causal self-attention, the encoder's bidirectional
+attention and cross-attention to a context) is the reference's flash-style
+chunked attention in plain PyTorch (f32 online softmax, no (S, S) tensor);
+decode self-attention appends the new token's K/V to the block cache in
+place and runs the hand-written ``decode_attention`` kernel (its plain
+version on the CPU); decode cross-attention reads the context's dense K/V
+in plain PyTorch, as the reference does in jnp.
 """
 from __future__ import annotations
 
@@ -29,8 +33,8 @@ from repro_torch.kernels.block_attention import append_token, decode_attention
 from .config import ArchConfig
 
 __all__ = [
-    "rms_norm", "apply_rope",
-    "Attention", "attention", "decode_attention_blocks",
+    "rms_norm", "apply_rope", "silu",
+    "Attention", "attention", "decode_attention_blocks", "decode_cross_attention",
     "MLP", "mlp",
     "Embedding", "embed", "unembed",
     "KVCache",
@@ -66,6 +70,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference evaluates it, ``x * (1 / (1 +
+    exp(-x)))`` one operation at a time in ``x``'s dtype: in bfloat16 each
+    step rounds, as each jnp operation's result does.  ``F.silu`` rounds once
+    and differs from it in about a third of bfloat16 outputs by one unit,
+    enough to flip a near-tied MoE routing decision downstream."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def _normal(shape, scale: float, dtype: torch.dtype, generator, device) -> torch.Tensor:
@@ -143,24 +156,29 @@ class Attention(nn.Module):
         self.wo.copy_((wo * real[:, None, None]).to(cd))
 
 
-def _project_qkv(m: Attention, x, positions):
+def _project_qkv(m: Attention, x, kv_x, q_positions, kv_positions):
+    """Q from ``x`` and K/V from ``kv_x``; RoPE on Q (K) at ``q_positions``
+    (``kv_positions``), none where they are None."""
     cfg = m.cfg
-    xc = x.to(m.wq.dtype)
+    xc, kc = x.to(m.wq.dtype), kv_x.to(m.wq.dtype)
     q = torch.einsum("bsd,dhk->bshk", xc, m.wq)
-    k = torch.einsum("bsd,dhk->bshk", xc, m.wk)
-    v = torch.einsum("bsd,dhk->bshk", xc, m.wv)
+    k = torch.einsum("bsd,dhk->bshk", kc, m.wk)
+    v = torch.einsum("bsd,dhk->bshk", kc, m.wv)
     if cfg.qk_norm:
         q = rms_norm(q, m.q_norm)
         k = rms_norm(k, m.k_norm)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if q_positions is not None:
+        q = apply_rope(q, q_positions, cfg.rope_theta)
+    if kv_positions is not None:
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
-def _chunked_attention(q, k, v, *, chunk: int):
-    """Causal flash-style attention in plain PyTorch: a loop over query
-    chunks, an inner loop over key chunks with an f32 online softmax (the
-    reference's two nested scans).  No (S, S) tensor is materialised."""
+def _chunked_attention(q, k, v, *, causal: bool, chunk: int):
+    """Flash-style attention in plain PyTorch: a loop over query chunks, an
+    inner loop over key chunks with an f32 online softmax (the reference's
+    two nested scans), masked causally when ``causal``.  No (S, S) tensor is
+    materialised."""
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
     cq, ck = min(chunk, Sq), min(chunk, Sk)
@@ -191,8 +209,9 @@ def _chunked_attention(q, k, v, *, chunk: int):
         for j in range(nk):
             kc, vc, kp, kval = kf[j], vf[j], k_pos[j], k_valid[j]
             s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
-            mask = kval[None, None, None, None, :] & (
-                qp[None, None, None, :, None] >= kp[None, None, None, None, :])
+            mask = kval[None, None, None, None, :]
+            if causal:
+                mask = mask & (qp[None, None, None, :, None] >= kp[None, None, None, None, :])
             s = torch.where(mask, s, float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -213,19 +232,28 @@ def attention(
     x: torch.Tensor,  # (B, S, d)
     *,
     positions: torch.Tensor | None = None,  # (S,) or (B, S)
+    kv_x: torch.Tensor | None = None,  # cross-attention source (B, S_src, d)
+    causal: bool = True,
+    rope: bool = True,
     chunk: int = 512,
     cache: KVCache | None = None,  # if given, filled with the block-layout K/V
 ) -> tuple[torch.Tensor, KVCache | None]:
-    """Causal self-attention with RoPE over a full sequence (train forward /
-    prefill).
+    """Self- or cross-attention over a full sequence (train forward /
+    prefill).  Causal self-attention with RoPE by default; cross-attention
+    takes K/V from ``kv_x`` (``causal=False, rope=False`` in the VLM and
+    decoder layers; with RoPE only the queries rotate); the encoder runs
+    ``causal=False, rope=True``.
 
     With ``cache``, the sequence's K/V are written into its blocks in place
     (positions past the sequence become zeros) and the cache is returned."""
     B, S, _ = x.shape
+    src = x if kv_x is None else kv_x
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(m, x, positions)
-    out = _chunked_attention(q, k, v, chunk=chunk)
+    qpos = positions if rope else None
+    kpos = positions if rope and kv_x is None else None
+    q, k, v = _project_qkv(m, x, src, qpos, kpos)
+    out = _chunked_attention(q, k, v, causal=causal, chunk=chunk)
     if cache is not None:
         nb, bs = cache.k.shape[1], cache.k.shape[3]
         if S > nb * bs:
@@ -257,13 +285,36 @@ def decode_attention_blocks(
     cfg = m.cfg
     pos = torch.as_tensor(position, device=x.device).long()
     qpos = pos[:, None] if pos.dim() == 1 else pos[None, None]
-    q, k, v = _project_qkv(m, x, qpos)
+    q, k, v = _project_qkv(m, x, x, qpos, qpos)
     append_token(cache.k, cache.v, k[:, 0], v[:, 0], pos)
     lengths = (pos + 1).expand(B)
     out = decode_attention(q[:, 0].contiguous(), cache.k, cache.v, lengths)  # (B, Hq, Dh)
     out = out.reshape(B, 1, cfg.padded_q_heads, cfg.head_dim)
     y = torch.einsum("bshk,hkd->bsd", out.to(m.wo.dtype), m.wo)
     return y, cache
+
+
+def decode_cross_attention(
+    m: Attention,
+    x: torch.Tensor,  # (B, 1, d)
+    k: torch.Tensor,  # (B, S_src, Hkv, Dh) the source's K, computed at prefill
+    v: torch.Tensor,
+) -> torch.Tensor:
+    """One decode step of cross-attention over the whole source (no mask, no
+    RoPE), in plain PyTorch with float32 scores as in the reference: the
+    source's K/V are dense (B, S_src, Hkv, Dh), not in the block layout."""
+    cfg = m.cfg
+    B = x.shape[0]
+    q = torch.einsum("bsd,dhk->bshk", x.to(m.wq.dtype), m.wq)
+    if cfg.qk_norm:
+        q = rms_norm(q, m.q_norm)
+    hkv = k.shape[2]
+    g = q.shape[2] // hkv
+    qg = q.reshape(B, hkv, g, cfg.head_dim).float()
+    s = torch.einsum("bhgk,bshk->bhgs", qg, k.float()) * (cfg.head_dim ** -0.5)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshk->bhgk", w, v.float()).reshape(B, 1, hkv * g, cfg.head_dim)
+    return torch.einsum("bshk,hkd->bsd", out.to(m.wo.dtype), m.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +342,7 @@ class MLP(nn.Module):
 
 def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
     xc = x.to(m.w1.dtype)
-    h = F.silu(xc @ m.w1) * (xc @ m.w3)
+    h = silu(xc @ m.w1) * (xc @ m.w3)
     return h @ m.w2
 
 

@@ -20,7 +20,7 @@ from repro_torch.core.cfa.api import resolve_device
 from repro_torch.kernels.ssd import ssd_decode_step, ssd_scan
 
 from .config import ArchConfig
-from .layers import _normal, _param, rms_norm, torch_dtype
+from .layers import _normal, _param, rms_norm, silu, torch_dtype
 
 __all__ = ["Mamba2", "mamba_train", "mamba_prefill", "mamba_decode", "MambaCache"]
 
@@ -91,7 +91,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = N
     out = xp[:, 0:S, :] * w[0][None, None, :]
     for j in range(1, K):
         out = out + xp[:, j:j + S, :] * w[j][None, None, :]
-    return F.silu(out)
+    return silu(out)
 
 
 def _projections(m: Mamba2, x: torch.Tensor):
@@ -135,7 +135,7 @@ def _mamba_full(m: Mamba2, x: torch.Tensor):
     y, state = _ssd(xh, loga, Bm_c, Cm_c, cfg.ssm_chunk)
     y = y + m.D[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, h * pd)
-    y = rms_norm(y * F.silu(z), m.norm)
+    y = rms_norm(y * silu(z), m.norm)
     return y.to(m.w_out.dtype) @ m.w_out, (xi, Bm, Cm), state
 
 
@@ -176,5 +176,5 @@ def mamba_decode(m: Mamba2, x: torch.Tensor, cache: MambaCache) -> tuple[torch.T
     cache.state.copy_(state)
     y = y[:, None] + m.D[None, None, :, None] * xh.float()
     y = y.reshape(B, 1, h * pd)
-    y = rms_norm(y.to(x.dtype) * F.silu(z), m.norm)
+    y = rms_norm(y.to(x.dtype) * silu(z), m.norm)
     return y.to(m.w_out.dtype) @ m.w_out, cache

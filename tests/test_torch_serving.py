@@ -2,14 +2,19 @@
 on the CPU.
 
 * The port's ``ContinuousBatcher`` and the reference's, on the SMOKE configs
-  with ``compute_dtype="float32"`` and the same weights (the reference's
-  ``init_lm`` pytree through ``lm_from_numpy``): prompts of 5, 9 and 7
-  tokens through 2 lanes (``tests/test_serving.py``'s stream) give equal
-  greedy tokens, and equal one-request-at-a-time generation.
+  of qwen3-0.6b, mamba2-370m, olmoe-1b-7b and jamba-1.5-large-398b (MoE in
+  every layer, and attention + Mamba + MoE) with ``compute_dtype="float32"``
+  and the same weights (the reference's ``init_lm`` pytree through
+  ``lm_from_numpy``): prompts of 5, 9 and 7 tokens through 2 lanes
+  (``tests/test_serving.py``'s stream) give equal greedy tokens, and equal
+  one-request-at-a-time generation.  The idle lane of a tick routes through
+  the experts and takes capacity, in both.
 * Scheduler accounting: ``stats()``, the serve spans and counters, a
   validated Chrome trace, FIFO admission and lane reuse — the reference's
   own checks, on the port's ``TraceRecorder``.
-* The launcher: ``python -m repro_torch.launch.serve --smoke --device cpu``.
+* The launcher: ``python -m repro_torch.launch.serve --smoke --device cpu``,
+  also for llama-3.2-vision-11b and seamless-m4t-large-v2, which it hands
+  context embeddings.
 """
 import dataclasses
 import functools
@@ -37,7 +42,7 @@ from repro_torch.models.lm import init_lm, lm_decode, lm_prefill
 from repro_torch.serve.scheduler import ContinuousBatcher, Request
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["qwen3-0.6b", "mamba2-370m"]
+ARCHS = ["qwen3-0.6b", "mamba2-370m", "olmoe-1b-7b", "jamba-1.5-large-398b"]
 PROMPT_LENS, N_NEW = (5, 9, 7), (4, 3, 5)  # tests/test_serving.py's stream
 
 
@@ -196,7 +201,9 @@ def test_a_lane_retires_at_the_cache_capacity():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,extra", [("qwen3-0.6b", []),
-                                        ("mamba2-370m", ["--temperature", "0.8", "--top-k", "5"])])
+                                        ("mamba2-370m", ["--temperature", "0.8", "--top-k", "5"]),
+                                        ("llama-3.2-vision-11b", []),
+                                        ("seamless-m4t-large-v2", [])])
 def test_launcher_runs_the_smoke_config_on_the_cpu(arch, extra):
     out = launcher.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                          "--prompt-len", "6", "--gen", "4", *extra])
