@@ -141,6 +141,25 @@ result line unless every phase passed):
                a chunk (chunk = T), float32 and bfloat16; y within 1e-4 +
                1e-4 |want| and 1e-3 + 2^-7 |want| (the bfloat16 control
                must exceed it), the final state within 1e-4 + 1e-4 |want|;
+               then the training route (``_SsdScan``'s launch, which also
+               saves the state entering every chunk) on ``SSD_CASES`` and
+               the training shape, both dtypes: y and the final state to the
+               same limits, and every saved chunk state within 1e-4 + 1e-4
+               |want| of ``ssd_chunked_ref``'s final state on the prefix
+               before its chunk;
+    ssd-bwd-kernel — slice 9's backward kernel ``ssd_scan_bwd`` (over the
+               per-chunk states the forward saves) against its plain
+               version, autograd through ``ssd_chunked_ref``, on
+               ``SSD_CASES`` and the training shape (B 8, T 4096, H 32, P 64,
+               N 128, chunk 128), float32 and bfloat16, with a zero and a
+               seeded final-state gradient: float32 within 1e-4 max|want| +
+               1e-6 per output (the sums run in another order; dB and dC sum
+               over H P L terms); bfloat16 dx, dB and dC within one output
+               rounding, 2^-7 |want| + 1e-3, which a bfloat16-throughout
+               control must exceed, and dloga (float32) within the float32
+               limit; two calls bit-equal (no atomics); at the training shape
+               the gradient through ``ssd_scan`` (``_SsdScan``) and one call
+               captured in a CUDA graph, each bit-equal to the direct call;
 13. serve    — slices 3 and 8: for qwen3-0.6b, mamba2-370m and olmoe-1b-7b
                (64 experts, top-8, in each of its 16 layers) at ``tp=1``
                (the published widths and depth, random weights from
@@ -202,15 +221,42 @@ result line unless every phase passed):
                4, its bound on the tensor-core route beside the FP32-pipe
                figure, and one call captured in a CUDA graph, which must
                equal the eager call bit for bit;
+    train    — slice 9: mamba2-370m at full width and depth (48 layers,
+               d_model 1024, 32 heads x 64, state 128, chunk 128, vocab
+               50280) trains on the card, AdamW, remat, float32 master
+               weights, bfloat16 compute, seq 4096 at the largest batch of
+               8, 4, 2 that fits: ``repro_torch.launch.train.main`` for 4
+               steps into a checkpoint directory (as ``python -m
+               repro_torch.launch.train`` runs), then the same command
+               again, which must resume at step 4 and run steps 5-8;
+               ``ssd_scan`` must launch 48 x 2 x 8 times (forward and remat
+               recompute) and ``ssd_scan_bwd`` 48 x 8; every loss and
+               grad-norm finite; step 4's checkpoint read back and a
+               restart's restore of step 8 bit-equal to the saved state; an
+               uninterrupted 8-step ``Trainer`` run from the same seed must
+               give the resumed run's losses at steps 5-8 (bit-equal, or
+               within 1e-5 relative); a fixed batch's step-8 loss below its
+               step-1 loss; printed: median step ms, tokens/s, peak memory,
+               the device's busy share over a profiled step and the model
+               FLOPs (8 N tokens with remat) against 989 TFLOP/s; then card
+               vs CPU gradients on a full-width 2-layer cut (batch 1, seq
+               512, float32 compute, weights copied): every leaf within
+               1e-3 max|g_cpu| + 1e-6, the loss within 1e-4 relative;
+    train timing — ``ssd_scan_bwd`` at the training shape and the serve
+               shape (B 1, T 1024) in bfloat16 by graph replay, beside its
+               plain version, the forward at the same shape, its bytes
+               bound and its FP32-pipe figure (no single PyTorch call
+               computes the SSD's gradient: no library yardstick);
 15. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases run in the order device, build, kernels, fetch, small, storage,
-attn-kernel, ssd-kernel, main, kernels-sharded, sharded, dataflow,
-irredundant, fetch-sharded, compressed, distribute, halo-quantize,
-calibrate, h100-target, serve, serve-ctx, jamba-smoke, timing (stencil,
-fetch, 1s/2s), serve timing; each serve model is freed before the next
-(olmoe holds 13.8 GB, the VLM 20.2 GB): every profiler window that
-reads host calls and kernels together runs before the timing phases'
+attn-kernel, ssd-kernel, ssd-bwd-kernel, main, kernels-sharded, sharded,
+dataflow, irredundant, fetch-sharded, compressed, distribute,
+halo-quantize, calibrate, h100-target, serve, serve-ctx, jamba-smoke,
+train, timing (stencil, fetch, 1s/2s), serve timing, train timing; each
+model is freed before the next (olmoe holds 13.8 GB, the VLM 20.2 GB, the
+training run about 37 GiB at its peak): every profiler window that reads
+host calls and kernels together runs before the timing phases'
 kernel-only windows and graph captures.
 ``--steps`` cuts the time axis of the full-width stencil paths; by
 default each runs at its full size.  Imports nothing of the JAX package;
@@ -301,6 +347,20 @@ SSD_CASES = [  # B, T, H, P, N, chunk; phase 12 adds the serve stream's short pr
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
 SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-3)}
 STATE_TOL = (1e-4, 1e-4)
+#: the backward's limits: float32, |got - want| <= 1e-4 max|want| + 1e-6 per
+#: output (the sums run in another order; dB and dC sum over H P L terms);
+#: bfloat16 dx, dB and dC within one output rounding of the plain version
+#: (its float32 gradient rounded), dloga (float32 out) within the float32 limit
+SSD_BWD_F32 = (1e-4, 1e-6)
+SSD_BWD_BF16 = (2.0 ** -7, 1e-3)
+#: slice 9's training path: mamba2-370m at full width and depth, the
+#: train_4k cell's sequence, the largest batch of these that fits one card
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCHES, TRAIN_STEPS = "mamba2-370m", 4096, (8, 4, 2), 4
+#: mamba2-370m's SSD at the training shape (B, T, H, P, N, chunk)
+SSD_TRAIN_SHAPE = (8, 4096, 32, 64, 128, 128)
+#: the card-vs-CPU gradient check: a full-width cut, float32 compute
+TRAIN_CPU_LAYERS, TRAIN_CPU_SEQ = 2, 512
+TRAIN_GRAD_TOL = (1e-3, 1e-6)  # per leaf: 1e-3 max|g_cpu| + 1e-6; the loss within 1e-4
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "olmoe-1b-7b")
 SERVE_LANES, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_MAX_NEW = 8, 2048, 16, 64
 SERVE_PROMPTS = (64, 1024)  # prompt lengths, seeded uniform, inclusive
@@ -370,7 +430,7 @@ def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Same dtype, shape and bits (NaN-safe, -0.0 != 0.0)."""
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
-    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
 def facets_equal(a: dict, b: dict) -> bool:
@@ -1688,12 +1748,56 @@ def _attn_wrapper_proof(device, q, kb, vb, n_calls: int = 10) -> None:
         raise AssertionError("a captured decode_attention differs from the eager call")
 
 
+def _prefix_states(x, loga, Bm, C, chunk) -> torch.Tensor:
+    """The state entering every chunk by the plain version, (B, T/chunk, H,
+    P, N) float32: zero before the first chunk, then ``ssd_chunked_ref``'s
+    final state on the prefix before each chunk."""
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+
+    B, T, H, P = x.shape
+    out = [torch.zeros((B, H, P, Bm.shape[-1]), dtype=torch.float32, device=x.device)]
+    for n in range(chunk, T, chunk):
+        out.append(ssd_chunked_ref(x[:, :n], loga[:, :n], Bm[:, :n], C[:, :n], chunk)[1])
+    return torch.stack(out, 1)
+
+
+def _ssd_states_check(args, chunk: int, tol, wy, wst, serve=None) -> tuple[float, float]:
+    """The training route (``_forward(save_states=True)``, the launch that
+    ``_SsdScan`` makes) against the plain version: y and the final state to
+    their limits, and each saved chunk state to ``_prefix_states`` within
+    STATE_TOL; logs whether y and the state equal the serving route's
+    (``serve``) bit for bit.  Returns (max error, max excess)."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+
+    y, st, states = ssd_mod._forward(*args, chunk, save_states=True)
+    want = _prefix_states(*args, chunk)
+    torch.cuda.synchronize()
+    ex = [_excess(y, wy, tol), _excess(st, wst, STATE_TOL), _excess(states, want, STATE_TOL)]
+    errs = [max_abs(y, wy), max_abs(st, wst), max_abs(states, want)]
+    same = "" if serve is None else (f"; y and the state == the serving route's bit for bit: "
+                                     f"{bit_equal(y, serve[0]) and bit_equal(st, serve[1])}")
+    B, T, H, P = args[0].shape
+    log(f"[ssd-kernel] ssd_scan training route (per-chunk states saved) B={B} T={T} H={H} "
+        f"P={P} N={args[2].shape[-1]} chunk={chunk} {str(args[0].dtype)[6:]}: max|kernel-plain| "
+        f"y / final state / the {states.shape[1]} chunk states = "
+        f"{', '.join(repr(e) for e in errs)}; x the limit {', '.join(f'{e:.3f}' for e in ex)}"
+        f"{same}")
+    if y.dtype != args[0].dtype or not max(ex) <= 1.0:
+        raise AssertionError(f"ssd_scan's training route differs from its plain version: "
+                             f"y, state, chunk states {errs}")
+    del states, want
+    return max(errs), max(ex)
+
+
 def phase_ssd_kernel(device) -> float:
     """``ssd_scan`` against its plain version (``ssd_chunked_ref``), y and
     the final state, on the test shapes, mamba2-370m's and the serve
     stream's prompts shorter than a chunk (run with chunk = T); in bfloat16
     also a control computed in bfloat16 throughout, which the limit must
-    reject."""
+    reject.  The training route, which also saves the state entering every
+    chunk, on ``SSD_CASES`` and the training shape: y and the final state to
+    the same limits, each saved state to the plain version's on the prefix
+    before its chunk."""
     from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_scan
 
     cfg = _serve_cfg("mamba2-370m")
@@ -1727,8 +1831,123 @@ def phase_ssd_kernel(device) -> float:
                 raise AssertionError(f"ssd_scan differs from its plain version: y {err_y!r}, "
                                      f"state {err_s!r}")
             worst = max(worst, err_y, err_s)
+            if (B, T, H, P, N, chunk) in SSD_CASES:
+                worst = max(worst, _ssd_states_check(args, chunk, tol, wy, wst, (y, st))[0])
+    B, T, H, P, N, chunk = SSD_TRAIN_SHAPE
+    x = rng_tensor(rng, (B, T, H, P), torch.float32, device)
+    loga = -rng_tensor(rng, (B, T, H), torch.float32, device).abs() * 0.5
+    Bm = rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)
+    C = rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)
+    for dt in (torch.float32, torch.bfloat16):
+        args = (x.to(dt), loga, Bm.to(dt), C.to(dt))
+        wy, wst = ssd_chunked_ref(*args, chunk)
+        worst = max(worst, _ssd_states_check(args, chunk, SSD_TOL[dt], wy, wst)[0])
+        del wy, wst
+    del x, loga, Bm, C
+    _free()
     if not control > 1.0:
         raise AssertionError(f"the bfloat16 limit {SSD_TOL[torch.bfloat16]} does not reject a "
+                             f"bfloat16-throughout control ({control:.3f} x the limit)")
+    return worst
+
+
+def _ssd_bwd_lowp(x, loga, Bm, C, dy, chunk):
+    """The control: the backward of ``_ssd_lowp`` (every step in
+    ``x.dtype``) by autograd."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, loga, Bm, C)]
+        return torch.autograd.grad(_ssd_lowp(*inputs, chunk), inputs, dy)
+
+
+def _bwd_excess(got, want, dt) -> list[float]:
+    """Each output's excess over its limit (dx, dloga, dB, dC)."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if dt == torch.float32 or i == 1:
+            rtol, atol = SSD_BWD_F32
+            out.append(_excess(g, w, (0.0, rtol * float(w.abs().max()) + atol)))
+        else:
+            out.append(_excess(g, w, SSD_BWD_BF16))
+    return out
+
+
+def phase_ssd_bwd_kernel(device) -> float:
+    """``ssd_scan_bwd`` against its plain version (autograd through
+    ``ssd_chunked_ref``) on ``SSD_CASES`` and the training shape, float32
+    and bfloat16, with a zero and a seeded final-state gradient; two calls
+    bit-equal; in bfloat16 a control computed in bfloat16 throughout, which
+    the limit must reject; the gradient through ``ssd_scan`` (``_SsdScan``)
+    equal to the direct call; one call captured in a CUDA graph equal to the
+    eager call."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.kernels.ssd import ssd_chunked_bwd_ref, ssd_scan, ssd_scan_bwd
+
+    rng = np.random.default_rng(SEED)
+    worst, control = 0.0, 0.0
+    for B, T, H, P, N, chunk in SSD_CASES + [SSD_TRAIN_SHAPE]:
+        x = rng_tensor(rng, (B, T, H, P), torch.float32, device)
+        loga = -rng_tensor(rng, (B, T, H), torch.float32, device).abs() * 0.5
+        Bm = rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)
+        C = rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)
+        dy = rng_tensor(rng, (B, T, H, P), torch.float32, device)
+        dstate = rng_tensor(rng, (B, H, P, N), torch.float32, device)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (x.to(dt), loga, Bm.to(dt), C.to(dt))
+            _, _, states = ssd_mod._forward(*args, chunk, save_states=True)
+            for ds in (None, dstate):
+                got = ssd_scan_bwd(*args, dy.to(dt), ds, chunk=chunk, states=states)
+                again = ssd_scan_bwd(*args, dy.to(dt), ds, chunk=chunk, states=states)
+                want = ssd_chunked_bwd_ref(*args, dy.to(dt), ds, chunk)
+                torch.cuda.synchronize()
+                ex = _bwd_excess(got, want, dt)
+                same = all(bit_equal(a, b) for a, b in zip(got, again))
+                errs = [max_abs(a, b) for a, b in zip(got, want)]
+                note = ""
+                if dt == torch.bfloat16 and ds is None:
+                    ctrl = max(_bwd_excess(_ssd_bwd_lowp(*args, dy.to(dt), chunk), want, dt)[i]
+                               for i in (0, 2, 3))
+                    control = max(control, ctrl)
+                    note = f"; bfloat16-throughout control {ctrl:.3f} x the limit"
+                log(f"[ssd-bwd-kernel] ssd_scan_bwd B={B} T={T} H={H} P={P} N={N} "
+                    f"chunk={chunk} {str(dt)[6:]}, dstate {'seeded' if ds is not None else 0}: "
+                    f"max|kernel-plain| dx/dloga/dB/dC = {', '.join(f'{e:.3e}' for e in errs)}; "
+                    f"x the limit {', '.join(f'{e:.3f}' for e in ex)}; two calls bit-equal "
+                    f"{same}{note}")
+                if not (max(ex) <= 1.0 and same) or got[0].dtype != dt or got[1].dtype != \
+                        torch.float32:
+                    raise AssertionError(f"ssd_scan_bwd differs from its plain version or "
+                                         f"between calls: {ex}, deterministic {same}")
+                worst = max(worst, *errs)
+            del states
+        if (B, T, H, P, N, chunk) == SSD_TRAIN_SHAPE:
+            args = (x.bfloat16(), loga, Bm.bfloat16(), C.bfloat16())
+            _, _, states = ssd_mod._forward(*args, chunk, save_states=True)
+            direct = ssd_scan_bwd(*args, dy.bfloat16(), chunk=chunk, states=states)
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            y, _ = ssd_scan(*leaves, chunk=chunk)
+            through = torch.autograd.grad(y, leaves, dy.bfloat16())
+            same_auto = all(bit_equal(a, b) for a, b in zip(through, direct))
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                ssd_scan_bwd(*args, dy.bfloat16(), chunk=chunk, states=states)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph):
+                captured = ssd_scan_bwd(*args, dy.bfloat16(), chunk=chunk, states=states)
+            graph.replay()
+            torch.cuda.synchronize()
+            same_graph = all(bit_equal(a, b) for a, b in zip(captured, direct))
+            log(f"[ssd-bwd-kernel] training shape, bfloat16: the gradient through ssd_scan "
+                f"(_SsdScan) == the direct call bit for bit: {same_auto}; one call captured in "
+                f"a CUDA graph and replayed == the eager call: {same_graph}")
+            if not (same_auto and same_graph):
+                raise AssertionError("ssd_scan_bwd through autograd or graph replay differs")
+            del graph, states, captured
+        _free()
+    if not control > 1.0:
+        raise AssertionError(f"the bfloat16 limit {SSD_BWD_BF16} does not reject a "
                              f"bfloat16-throughout control ({control:.3f} x the limit)")
     return worst
 
@@ -2239,6 +2458,295 @@ def phase_jamba_smoke(device) -> dict:
     return {"launches": launches, "ticks": ticks, "err": max(errs), "cpu_err": err}
 
 
+# -- slice 9: training ----------------------------------------------------------
+
+
+def _train_cfg(**kw):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN_ARCH), tp=1, **kw)
+
+
+def _train_hp(steps: int = TRAIN_STEPS):
+    """The hyper-parameters ``launch.train`` derives from ``--steps``."""
+    from repro_torch.train.steps import TrainHParams
+
+    return TrainHParams(total_steps=max(steps, 10), warmup=min(20, steps))
+
+
+def _losses(log: list[dict]) -> dict[int, float]:
+    return {m["step"]: m["loss"] for m in log}
+
+
+def _profile_step(trainer, batch: dict) -> dict | None:
+    """Wall and device-busy seconds of one train step (kernel rows only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_fn(trainer.model, trainer.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    if not rows:
+        log(f"[train] profiler saw no kernel time over one step ({wall:.3f} s wall): device "
+            f"busy share not measured")
+        return None
+    busy = sum(r[1] for r in rows) / 1e6
+    log(f"[train] profiler over one step: wall {wall * 1e3:.3f} ms, kernels "
+        f"{sum(r[2] for r in rows)} launches, device busy {busy * 1e3:.3f} ms ({busy / wall:.1%};"
+        f" idle {1 - busy / wall:.1%}); top kernels by device time: "
+        + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms ({t / 1e6 / busy:.1%}) x{c}"
+                    for k, t, c in rows[:8]))
+    return {"wall_s": wall, "busy_s": busy}
+
+
+def _train_grads_cpu_check(device) -> dict:
+    """Card vs CPU: the loss and every gradient leaf of a full-width cut
+    (``TRAIN_CPU_LAYERS`` layers, batch 1, ``TRAIN_CPU_SEQ`` tokens, float32
+    compute, remat on), the card's weights copied to the CPU."""
+    from repro_torch.interop import lm_from_numpy, lm_to_numpy
+    from repro_torch.models.lm import init_lm, param_leaves
+    from repro_torch.train.steps import TrainHParams, loss_fn
+
+    cfg = _train_cfg(n_layers=TRAIN_CPU_LAYERS, compute_dtype="float32")
+    card = init_lm(cfg, generator=torch.Generator(device).manual_seed(SEED), device=device,
+                   dtype=cfg.param_dtype)
+    host = lm_from_numpy(cfg, lm_to_numpy(card), device="cpu", dtype=cfg.param_dtype)
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, size=(1, TRAIN_CPU_SEQ))
+    hp = TrainHParams(remat=True)
+    out = {}
+    for name, model in (("card", card), ("cpu", host)):
+        loss, _ = loss_fn(model, {"tokens": torch.as_tensor(tokens, device=model.device)}, cfg,
+                          hp)
+        loss.backward()
+        out[name] = (float(loss.detach()), [leaf.take_grad().cpu() for leaf in param_leaves(model)])
+    rel_loss = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst, worst_leaf = 0.0, None
+    for leaf, g, w in zip(param_leaves(host), out["card"][1], out["cpu"][1]):
+        ex = _excess(g, w, (0.0, TRAIN_GRAD_TOL[0] * float(w.abs().max()) + TRAIN_GRAD_TOL[1]))
+        if ex >= worst:
+            worst, worst_leaf = ex, "/".join(leaf.path)
+    log(f"[train] card vs CPU gradients, {TRAIN_ARCH} cut to {TRAIN_CPU_LAYERS} layers at full "
+        f"width (batch 1, seq {TRAIN_CPU_SEQ}, float32 compute, remat): loss {out['card'][0]!r} "
+        f"vs {out['cpu'][0]!r} (relative {rel_loss:.3e}, limit 1e-4); the worst of "
+        f"{len(out['cpu'][1])} gradient leaves {worst:.3f} x the limit (1e-3 max|g_cpu| + 1e-6) "
+        f"at {worst_leaf}")
+    if not (rel_loss <= 1e-4 and worst <= 1.0):
+        raise AssertionError(f"card and CPU gradients differ: loss {rel_loss:.3e}, leaf {worst}")
+    return {"rel_loss": rel_loss, "grad_excess": worst}
+
+
+def phase_train(device) -> dict:
+    """Slice 9's path: mamba2-370m at full width and depth trains on the card
+    (AdamW, remat, float32 master weights, bf16 compute) through
+    ``repro_torch.launch.train.main`` as a user runs it — ``TRAIN_STEPS``
+    steps into a checkpoint directory, then the same command again, which
+    must resume and run as many more — against an uninterrupted ``Trainer``
+    run from the same seed; then a fixed batch whose loss must fall, and the
+    card-vs-CPU gradient check."""
+    import tempfile
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_bwd
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.lm import param_leaves
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import TrainHParams
+
+    cfg = _train_cfg()
+    root = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    steps = 2 * TRAIN_STEPS
+    for batch in TRAIN_BATCHES:
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(batch),
+                "--seq", str(TRAIN_SEQ), "--ckpt-dir", str(root / f"b{batch}"),
+                "--ckpt-every", str(TRAIN_STEPS), "--log-every", "1"]
+        try:
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            ssd_scan.launches = ssd_scan_bwd.launches = 0
+            t0 = time.perf_counter()
+            first = launch_train.main(argv)
+            saved = [t.cpu() for t in first["trainer"].state()]
+            del first["trainer"]
+            second = launch_train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"ssd_scan": ssd_scan.launches, "ssd_scan_bwd": ssd_scan_bwd.launches}
+            break
+        except torch.OutOfMemoryError as e:
+            log(f"[train] batch {batch} x {TRAIN_SEQ} does not fit: {str(e).splitlines()[0][:120]}")
+            first = second = None
+            _free()
+    else:
+        raise AssertionError(f"no batch of {TRAIN_BATCHES} x {TRAIN_SEQ} fits the card")
+    peak = torch.cuda.max_memory_allocated()
+    n_mamba = sum(1 for _ in range(cfg.n_periods) for k in cfg.period if k == "mamba")
+    tokens = batch * TRAIN_SEQ
+    log(f"[train] {TRAIN_ARCH} ({cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.ssm_d_inner}, {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}, "
+        f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab}) ran at batch {batch} x seq {TRAIN_SEQ} "
+        f"(the largest of {TRAIN_BATCHES} that fits), AdamW, remat, float32 master weights, "
+        f"bfloat16 compute: python -m repro_torch.launch.train {' '.join(argv)} twice, "
+        f"{wall:.1f} s with both checkpoints")
+    log(f"[train] first run resumed from {first['start']}: losses {_losses(first['log'])}; "
+        f"second run resumed from {second['start']}: losses {_losses(second['log'])}")
+    want_fwd, want_bwd = n_mamba * 2 * steps, n_mamba * steps
+    log(f"[train] launches over the launcher's {steps} steps: ssd_scan {launches['ssd_scan']} "
+        f"(want {n_mamba} x 2 x {steps} = {want_fwd}: forward and remat recompute), "
+        f"ssd_scan_bwd {launches['ssd_scan_bwd']} (want {n_mamba} x {steps} = {want_bwd})")
+    if first["start"] != 0 or second["start"] != TRAIN_STEPS or \
+            sorted(_losses(second["log"])) != list(range(TRAIN_STEPS + 1, steps + 1)):
+        raise AssertionError("the second launcher run did not resume at the checkpoint")
+    if launches != {"ssd_scan": want_fwd, "ssd_scan_bwd": want_bwd}:
+        raise AssertionError(f"launch counts {launches} != {want_fwd}, {want_bwd}")
+    for m in first["log"] + second["log"]:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"a non-finite loss or grad-norm: {m}")
+    # the checkpoints: step TRAIN_STEPS as saved, the last one as a restart restores it
+    resumed = second["trainer"]
+    from_disk = resumed.ckpt.restore(TRAIN_STEPS, [t for t in saved])
+    same_saved = all(bit_equal(a, b) for a, b in zip(from_disk, saved))
+    hp = _train_hp()
+    again = Trainer(cfg, batch=batch, seq=TRAIN_SEQ, ckpt_dir=resumed.ckpt.dir, hp=hp,
+                    device=device)
+    same_restored = again.step == steps and all(
+        bit_equal(a, b) for a, b in zip(again.state(), resumed.state()))
+    again.data.close()
+    log(f"[train] checkpoints: step {TRAIN_STEPS} read back == the state saved, bit for bit: "
+        f"{same_saved} ({len(saved)} leaves: {len(resumed.leaves)} parameter leaves, then "
+        f"the optimizer's step, mu and nu); a restart restores step {steps} == the resumed "
+        f"run's final parameters and moments bit for bit: {same_restored}")
+    if not (same_saved and same_restored):
+        raise AssertionError("a restored checkpoint differs from the saved state")
+    del again, saved, from_disk
+    _free()
+    # the uninterrupted run from the same seed
+    straight = Trainer(cfg, batch=batch, seq=TRAIN_SEQ, ckpt_dir=root / "straight", hp=hp,
+                       ckpt_every=10 ** 9, device=device)
+    log_s = straight.run(steps, log_every=1)
+    straight.data.close()
+    got, want = _losses(second["log"]), _losses(log_s)
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in got)
+    bit = all(got[k] == want[k] for k in got)
+    same_state = all(bit_equal(a, b) for a, b in zip(straight.state(), resumed.state()))
+    log(f"[train] uninterrupted Trainer run ({steps} steps, seed 0): losses {want}; steps "
+        f"{TRAIN_STEPS + 1}-{steps} against the resumed run: bit-equal {bit}, max relative "
+        f"difference {rel:.3e}; final parameters and moments bit-equal {same_state}")
+    if not (bit or rel <= 1e-5):
+        raise AssertionError(f"the resumed run's losses differ from the uninterrupted run's: "
+                             f"{rel:.3e}")
+    dts = [m["dt"] for m in log_s[1:]]
+    step_s = statistics.median(dts)
+    batch_t = {"tokens": torch.as_tensor(straight.data.batch_at(steps)["tokens"],
+                                         device=device)}
+    prof = _profile_step(straight, batch_t)
+    n_params = sum(p.numel() for leaf in param_leaves(straight.model) for p in leaf.parts
+                   if leaf.path[0] != "embed")
+    mfu = 8 * n_params * tokens / step_s / PEAK_BF16_TC_FLOPS
+    log(f"[train] median step {step_s * 1e3:.3f} ms over steps 2-{steps} of the uninterrupted "
+        f"run ({tokens / step_s:.1f} tokens/s); peak memory {peak / 2 ** 30:.3f} GiB "
+        f"(max_memory_allocated over the launcher's runs); model FLOPs 8 N tokens with remat, "
+        f"N = {n_params} non-embedding parameters: {8 * n_params * tokens / 1e12:.3f} TFLOP per "
+        f"step, {mfu:.2%} of the bf16 tensor-core peak 989 TFLOP/s")
+    del straight, resumed, second
+    _free()
+    # a fixed batch the model can learn
+    hp_fixed = TrainHParams(peak_lr=1e-3, warmup=2, total_steps=40)
+
+    class Fixed(SyntheticTokens):
+        def batch_at(self, step):
+            rng = np.random.default_rng(42)  # the same batch every step
+            return {"tokens": rng.integers(0, self.vocab, size=(self.batch, self.seq),
+                                           dtype=np.int32)}
+
+    fixed = Trainer(cfg, batch=batch, seq=TRAIN_SEQ, ckpt_dir=root / "fixed", hp=hp_fixed,
+                    ckpt_every=10 ** 9, device=device,
+                    data=Fixed(vocab=cfg.vocab, batch=batch, seq=TRAIN_SEQ))
+    log_f = fixed.run(steps, log_every=1)
+    fixed.data.close()
+    lf = _losses(log_f)
+    log(f"[train] fixed batch (peak lr 1e-3): losses {lf}")
+    if not (all(math.isfinite(v) for v in lf.values()) and lf[steps] < lf[1]):
+        raise AssertionError(f"the fixed batch's loss did not fall: {lf[1]} -> {lf[steps]}")
+    del fixed
+    _free()
+    check = _train_grads_cpu_check(device)
+    _free()
+    return {"batch": batch, "launches": launches, "step_ms": step_s * 1e3,
+            "tokens_per_s": tokens / step_s, "peak_gib": peak / 2 ** 30, "mfu": mfu,
+            "busy": None if prof is None else prof["busy_s"] / prof["wall_s"], **check}
+
+
+def _ssd_bwd_bound(B: int, T: int, H: int, P: int, N: int, L: int,
+                   esize: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, the f32-pipe operations figure) of one
+    backward call: x, dy, the saved states, loga, B and C read once; dx,
+    dloga, dB and dC written once; against its products — per chunk 2 L^2 N
+    (G) + 4 L^2 N (dG B, dG^T C), per head and chunk 4 L^2 P (dy x^T, W^T dy)
+    + 8 L P N (dS, the facet term, dy^T S, x^T dS) — at the peak for the
+    inputs' type (the bf16 tensor cores for bf16), and always at the f32 peak
+    for the third value (the FP32-pipe figure)."""
+    nc = T // L
+    nbytes = (3 * B * T * H * P + 4 * B * T * N) * esize + B * nc * H * P * N * 4 \
+        + 2 * B * T * H * 4
+    flops = B * nc * (6 * L * L * N + H * (4 * L * L * P + 8 * L * P * N))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_f32 = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = flops / PEAK_BF16_TC_FLOPS * 1e3 if esize == 2 else t_f32
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_f32,)
+
+
+def phase_train_timing(device) -> dict:
+    """``ssd_scan_bwd`` at the training and serve shapes (bf16) by graph
+    replay, beside its plain version, the forward at the same shape, its
+    bound and its FP32-pipe figure."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.kernels.ssd import ssd_chunked_bwd_ref, ssd_scan, ssd_scan_bwd
+
+    rng = np.random.default_rng(SEED)
+    row = None
+    for B, T, H, P, N, L in (SSD_TRAIN_SHAPE, (1, SERVE_PROMPTS[1], 32, 64, 128, 128)):
+        x = rng_tensor(rng, (B, T, H, P), torch.bfloat16, device)
+        loga = -rng_tensor(rng, (B, T, H), torch.float32, device).abs() * 0.5
+        Bm = (rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)).bfloat16()
+        C = (rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)).bfloat16()
+        dy = rng_tensor(rng, (B, T, H, P), torch.bfloat16, device)
+        _, _, states = ssd_mod._forward(x, loga, Bm, C, L, save_states=True)
+        got = ssd_scan_bwd(x, loga, Bm, C, dy, chunk=L, states=states)
+        want = ssd_chunked_bwd_ref(x, loga, Bm, C, dy, None, L)
+        err = max(max_abs(a, b) for a, b in zip(got, want))
+        ex = max(_bwd_excess(got, want, torch.bfloat16))
+        del want
+        iters = 4 if B > 1 else 20
+        m = _measure(lambda: ssd_scan_bwd(x, loga, Bm, C, dy, chunk=L, states=states), iters)
+        fwd = _measure(lambda: ssd_scan(x, loga, Bm, C, chunk=L), iters)
+        plain_ms = _time_ms(lambda: ssd_chunked_bwd_ref(x, loga, Bm, C, dy, None, L), 2,
+                            warmup=1, repeats=3)[0]
+        bound_ms, bound_by, f32_ms = _ssd_bwd_bound(B, T, H, P, N, L, 2)
+        plan = ssd_mod.backward_plan(B, T, H, P, N, L)
+        log(f"[timing] ssd_scan_bwd B={B} T={T} H={H} P={P} N={N} chunk={L} bfloat16 "
+            f"({'the training shape' if B > 1 else 'the serve shape'}): kernel {_fmt(m)}; "
+            f"plain (autograd through ssd_chunked_ref) {plain_ms:.6f} ms (eager CUDA events); "
+            f"the forward ssd_scan at this shape {_fmt(fwd)}; bound {bound_ms:.6f} ms "
+            f"({bound_by}), {bound_ms / m['ms']:.1%} of bound; the FP32-pipe operations bound "
+            f"{f32_ms:.6f} ms; launches {plan.grids} = {plan.ctas} CTAs of 256 threads, "
+            f"shared memory {plan.smem} B, scratch {plan.scratch} B, saved states {plan.saved} "
+            f"B; max|kernel-plain| {err!r} ({ex:.3f} x the limit)")
+        if not ex <= 1.0:
+            raise AssertionError(f"ssd_scan_bwd differs from plain at the path shape: {err!r}")
+        if row is None:
+            row = {"ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "err": err}
+        del states, got
+        _free()
+    return row
+
+
 def _attn_bound(lengths: torch.Tensor, Hq: int, Hkv: int, D: int, esize: int,
                 q_esize: int) -> tuple[float, str]:
     """The valid K/V prefix read once plus q and out, against 4 D flops per
@@ -2419,6 +2927,7 @@ def main() -> int:
     # after those, such a window reported no kernel rows on the card
     worst_attn = phase_attn_kernel(device)
     worst_ssd = phase_ssd_kernel(device)
+    worst_ssd_bwd = phase_ssd_bwd_kernel(device)
     main_run = phase_main(device, cut(MAIN_SPACE))
     worst_sharded = phase_kernels_sharded(device, main_run)
     sharded_run = phase_sharded(device, main_run)
@@ -2437,11 +2946,14 @@ def main() -> int:
         _free()  # the model (olmoe: 13.8 GB) goes before the next
     ctx_runs = {arch: phase_serve_ctx(device, arch) for arch in CTX_ARCHS}
     jamba_run = phase_jamba_smoke(device)
+    _free()
+    train_run = phase_train(device)
     rows = phase_timing(device, main_run, irr_run)
     fetch_row = phase_fetch_timing(irr_run)
     sharded_rows = phase_sharded_timing(device, main_run, irr_run, fetch_row,
                                         fetch_sharded_run["assignment"])
     serve_rows = phase_serve_timing(device, runs)
+    bwd_row = phase_train_timing(device)
     log_clocks()
     row = rows[0]
     kernels = [{
@@ -2479,6 +2991,16 @@ def main() -> int:
             **{k: row[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
         })
+    # the SSD's gradient: no Pallas counterpart (the JAX package differentiates its jnp SSD)
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/mamba2.py:106",
+        "launches": train_run["launches"]["ssd_scan_bwd"],
+        "max_abs_err": max(worst_ssd_bwd, bwd_row["err"]),
+        **{k: bwd_row[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+    })
     # the per-port wrappers launch the kernels of rows 1 and 2 (no source of their own)
     for name, source, replaces, launches, worst_k in (
             ("execute_tiles_sharded", "src/repro_torch/kernels/stencil/csrc/stencil_tiles.cu",
@@ -2505,6 +3027,10 @@ def main() -> int:
     log("[done] launches per serve path: " + "; ".join(
         f"{name} decode_attention {r['launches']['decode_attention']}, ssd_scan "
         f"{r['launches']['ssd_scan']}" for name, r in paths.items()))
+    launches = train_run["launches"]
+    log(f"[done] launches over the training path ({TRAIN_ARCH}, batch {train_run['batch']}, "
+        f"{2 * TRAIN_STEPS} steps through the launcher): ssd_scan {launches['ssd_scan']}, "
+        f"ssd_scan_bwd {launches['ssd_scan_bwd']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

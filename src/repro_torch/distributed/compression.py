@@ -1,8 +1,12 @@
-"""Symmetric per-tensor int8 quantization (the ``halo_quantize`` hook).
+"""Symmetric per-tensor int8 quantization (the ``halo_quantize`` hook) and
+error-feedback gradient compression (``TrainHParams.compress_grads``).
 
-The PyTorch counterpart of ``quantize_int8``/``dequantize_int8`` of the
-reference's ``repro/distributed/compression.py``; its error-feedback
-helpers belong to the training slice.  Bit-exact against the reference in
+The PyTorch counterpart of the reference's
+``repro/distributed/compression.py``: ``quantize_int8``/``dequantize_int8``
+and ``ef_init``/``ef_compress``, which quantize each gradient plus the
+residual carried from the step before and carry the new residual
+(Karimireddy et al., 2019).  Gradients and residuals are lists of tensors,
+one per leaf.  Bit-exact against the reference in
 float32 (and on inputs cast from float64, which it quantizes in float32):
 the scale divides by a 0-d tensor on the input's device — CUDA PyTorch
 turns division by a Python scalar into a multiply by its rounded
@@ -12,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["quantize_int8", "dequantize_int8"]
+__all__ = ["quantize_int8", "dequantize_int8", "ef_init", "ef_compress"]
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -26,3 +30,19 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def ef_init(params: list[torch.Tensor]) -> list[torch.Tensor]:
+    return [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+
+
+def ef_compress(grads: list[torch.Tensor], error_state: list[torch.Tensor]
+                ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Quantize (grad + carried error); carry the new residual."""
+    new_grads, new_err = [], []
+    for g, e in zip(grads, error_state):
+        target = g.to(torch.float32) + e
+        deq = dequantize_int8(*quantize_int8(target))
+        new_grads.append(deq.to(g.dtype))
+        new_err.append(target - deq)
+    return new_grads, new_err

@@ -7,7 +7,8 @@ the JAX autotuner chose (its ``LayoutCandidate`` fields) is rebuilt as the
 port's candidate with :func:`candidate_from_key`, so the port runs exactly
 that layout (``repro_torch.cfa.compile(..., layout=candidate)``).  A
 language model's parameters (the reference's ``init_lm`` pytree as numpy
-arrays) become the port's ``LM`` with :func:`lm_from_numpy`.
+arrays) become the port's ``LM`` with :func:`lm_from_numpy` and go back to
+that pytree with :func:`lm_to_numpy`.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 
 from repro_torch.core.cfa.autotune import LayoutCandidate
 
-__all__ = ["facets_from_numpy", "facets_to_numpy", "candidate_from_key", "lm_from_numpy"]
+__all__ = ["facets_from_numpy", "facets_to_numpy", "candidate_from_key", "lm_from_numpy",
+           "lm_to_numpy"]
 
 
 def facets_from_numpy(
@@ -49,7 +51,8 @@ def candidate_from_key(
                            ext_dirs=ext_dirs, contiguity=contiguity)
 
 
-def lm_from_numpy(cfg, params: Mapping[str, Any], device: "torch.device | str" = "cuda"):
+def lm_from_numpy(cfg, params: Mapping[str, Any], device: "torch.device | str" = "cuda",
+                  dtype=None):
     """The port's ``LM`` for ``cfg`` holding the reference's parameters.
 
     ``params`` is the reference's ``init_lm`` pytree with numpy leaves
@@ -60,13 +63,15 @@ def lm_from_numpy(cfg, params: Mapping[str, Any], device: "torch.device | str" =
     layer has them) — and, for an encoder-decoder, ``encoder``: its
     ``layers`` carry a leading ``enc_layers`` axis (layer ``j`` becomes
     ``encoder.layers.j``) beside its ``final_norm``.  A norm's
-    ``{"scale": s}`` becomes one parameter.  Matrices are rounded to
-    the compute dtype as the reference's per-call cast rounds them.  Every
-    parameter of the port must be set by exactly one leaf, and every leaf
-    must set one."""
+    ``{"scale": s}`` becomes one parameter.  ``dtype`` None gives a serving
+    model, whose matrices are rounded to the compute dtype as the
+    reference's per-call cast rounds them; ``dtype=cfg.param_dtype`` a
+    training model that keeps the reference's float32 leaves (``LM``).
+    Every parameter of the port must be set by exactly one leaf, and every
+    leaf must set one."""
     from repro_torch.models.lm import LM
 
-    model = LM(cfg, device=device)
+    model = LM(cfg, device=device, dtype=dtype)
     own = dict(model.named_parameters())
     loaded: set[str] = set()
 
@@ -104,3 +109,21 @@ def lm_from_numpy(cfg, params: Mapping[str, Any], device: "torch.device | str" =
     if missing:
         raise ValueError(f"parameters not set by the pytree: {missing}")
     return model
+
+
+def lm_to_numpy(model) -> dict:
+    """The reference's ``init_lm`` pytree of the port's ``LM`` as numpy
+    arrays (bfloat16 as float32, which holds it exactly): the inverse of
+    :func:`lm_from_numpy`.  Periods (and encoder layers) are stacked on a
+    leading axis and a norm becomes ``{"scale": s}``, as
+    ``repro_torch.models.lm.param_leaves`` groups them."""
+    from repro_torch.models.lm import param_leaves
+
+    out: dict = {}
+    for leaf in param_leaves(model):
+        v = leaf.value().cpu()
+        tree = out
+        for key in leaf.path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[leaf.path[-1]] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return out

@@ -419,8 +419,9 @@ __device__ __forceinline__ void ds_tiles(float (&sacc)[2][4], const Chunk& k, in
 __global__ void __launch_bounds__(kMmaThreads, 1)
 ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ loga,
                     const __nv_bfloat16* __restrict__ Bm, const __nv_bfloat16* __restrict__ C,
-                    __nv_bfloat16* __restrict__ y, float* __restrict__ state_out, int T, int H,
-                    int P, int N, int L, Layout g, int vec) {
+                    __nv_bfloat16* __restrict__ y, float* __restrict__ state_out,
+                    float* __restrict__ states, int T, int H, int P, int N, int L, Layout g,
+                    int vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int p0 = blockIdx.x * kPB, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -538,6 +539,20 @@ ssd_scan_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
     }
     __syncthreads();
 
+    if (states) {  // the state entering chunk c, for the backward pass
+      float* sc = states + (((size_t)b * nc + c) * H + h) * P * N;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i < nmine) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = p0 + gr + (e < 2 ? 0 : 8);
+            const int n = 8 * (warp + kMmaWarps * i) + 2 * gc + (e & 1);
+            if (p < P && n < N) sc[(size_t)p * N + n] = sacc[i][e];
+          }
+        }
+      }
+    }
     // ---- the flow-out facet first: S <- exp(l_L) S + (x o wout)^T B, this
     // warp's n-tiles (they stay with the warp from chunk to chunk)
     const float etot = expf(ltot);
@@ -590,8 +605,8 @@ size_t fma_smem_bytes(int N, int L) {
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_fma_kernel(const float* __restrict__ x, const float* __restrict__ loga,
                     const float* __restrict__ Bm, const float* __restrict__ C,
-                    float* __restrict__ y, float* __restrict__ state_out, int T, int H, int P,
-                    int N, int L) {
+                    float* __restrict__ y, float* __restrict__ state_out,
+                    float* __restrict__ states, int T, int H, int P, int N, int L) {
   extern __shared__ float fsm[];
   const int p0 = blockIdx.x * kPB, h = blockIdx.y, b = blockIdx.z;
   const int pw = min(kPB, P - p0);
@@ -611,6 +626,14 @@ ssd_scan_fma_kernel(const float* __restrict__ x, const float* __restrict__ loga,
 
   for (int i = threadIdx.x; i < N * kPB; i += kThreads) St[i] = 0.0f;
   for (int c0 = 0; c0 < T; c0 += L) {
+    if (states) {  // the state entering this chunk, for the backward pass
+      __syncthreads();
+      float* sc = states + (((size_t)b * (T / L) + c0 / L) * H + h) * P * N + (size_t)p0 * N;
+      for (int i = threadIdx.x; i < pw * N; i += kThreads) {
+        const int p = i / N, n = i - p * N;
+        sc[i] = St[n * kPB + p];
+      }
+    }
     for (int i = threadIdx.x; i < L * kPB; i += kThreads) {
       const int t = i / kPB, p = i - t * kPB;
       xs[i] = p < pw ? xb[(size_t)(c0 + t) * row + p] : 0.0f;
@@ -688,12 +711,15 @@ extern "C" long ssd_scan_smem(int dtype, int N, int L) {
   return 0;
 }
 
-// dtype code (x, B, C and y): 0 = float32, 1 = bfloat16; loga and the state
-// are float32.  Returns a cudaError_t (0 = success); 1
-// (cudaErrorInvalidValue) for shapes the kernel does not take.
+// dtype code (x, B, C and y): 0 = float32, 1 = bfloat16; loga, the state
+// and `states` are float32.  `states` (B, T/L, H, P, N), when not null,
+// receives the state entering every chunk (the backward pass reads them);
+// the serving path passes null.
+// Returns a cudaError_t (0 = success); 1 (cudaErrorInvalidValue) for shapes
+// the kernel does not take.
 extern "C" int ssd_scan(int dtype, const void* x, const float* loga, const void* Bm,
-                        const void* C, void* y, float* state, int Bsz, int Tlen, int H, int P,
-                        int N, int L, void* stream) {
+                        const void* C, void* y, float* state, float* states, int Bsz, int Tlen,
+                        int H, int P, int N, int L, void* stream) {
   if (Bsz <= 0 || Bsz > 65535 || H <= 0 || H > 65535 || P <= 0 || N <= 0 || N > kMaxN ||
       L <= 0 || L > kMaxChunk || Tlen <= 0 || Tlen % L != 0)
     return (int)cudaErrorInvalidValue;
@@ -706,7 +732,7 @@ extern "C" int ssd_scan(int dtype, const void* x, const float* loga, const void*
     if (err != cudaSuccess) return (int)err;
     ssd_scan_fma_kernel<<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(x), loga, static_cast<const float*>(Bm),
-        static_cast<const float*>(C), static_cast<float*>(y), state, Tlen, H, P, N, L);
+        static_cast<const float*>(C), static_cast<float*>(y), state, states, Tlen, H, P, N, L);
     return (int)cudaGetLastError();
   }
   if (dtype == 1) {
@@ -719,8 +745,8 @@ extern "C" int ssd_scan(int dtype, const void* x, const float* loga, const void*
     if (err != cudaSuccess) return (int)err;
     ssd_scan_mma_kernel<<<grid, kMmaThreads, g.total, st>>>(
         static_cast<const __nv_bfloat16*>(x), loga, static_cast<const __nv_bfloat16*>(Bm),
-        static_cast<const __nv_bfloat16*>(C), static_cast<__nv_bfloat16*>(y), state, Tlen, H,
-        P, N, L, g, vec ? 1 : 0);
+        static_cast<const __nv_bfloat16*>(C), static_cast<__nv_bfloat16*>(y), state, states,
+        Tlen, H, P, N, L, g, vec ? 1 : 0);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

@@ -3,10 +3,11 @@ from __future__ import annotations
 
 import torch
 
-from .ref import ssd_chunked_ref, ssd_scan_ref
-from .ssd import ssd_scan
+from .ref import ssd_chunked_bwd_ref, ssd_chunked_ref, ssd_scan_ref
+from .ssd import ssd_scan, ssd_scan_bwd
 
-__all__ = ["ssd_scan", "ssd_scan_ref", "ssd_chunked_ref", "ssd_decode_step"]
+__all__ = ["ssd_scan", "ssd_scan_bwd", "ssd_scan_ref", "ssd_chunked_ref", "ssd_chunked_bwd_ref",
+           "ssd_decode_step"]
 
 
 def ssd_decode_step(

@@ -11,13 +11,14 @@ the chunked kernel: the same chunk math as the reference model's
 ``_ssd_chunked`` (``repro/models/mamba2.py``) and the Pallas kernel body —
 per chunk an intra-chunk masked-decay product and an inter-chunk term read
 from the carried state, the chunk's flow-out facet.  The ``ssd_scan``
-wrapper runs it for tensors on the CPU.
+wrapper runs it for tensors on the CPU.  :func:`ssd_chunked_bwd_ref`, the
+plain version of the backward kernel, is autograd through it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ssd_scan_ref", "ssd_chunked_ref"]
+__all__ = ["ssd_scan_ref", "ssd_chunked_ref", "ssd_chunked_bwd_ref"]
 
 
 def ssd_scan_ref(
@@ -83,3 +84,24 @@ def ssd_chunked_ref(
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, 1).reshape(Bb, T, H, Pd)
     return y.to(x.dtype), S
+
+
+def ssd_chunked_bwd_ref(
+    x: torch.Tensor,
+    loga: torch.Tensor,
+    Bm: torch.Tensor,
+    C: torch.Tensor,
+    dy: torch.Tensor,  # (B, T, H, P): the gradient of y
+    dstate: torch.Tensor | None,  # (B, H, P, N): the final state's gradient (None: zero)
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`ssd_chunked_ref` by autograd: (dx, dloga, dB,
+    dC) in the inputs' dtypes."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, loga, Bm, C)]
+        y, S = ssd_chunked_ref(*inputs, chunk)
+        outs, grads = [y], [dy.to(y.dtype)]
+        if dstate is not None:
+            outs.append(S)
+            grads.append(dstate.to(S.dtype))
+        return tuple(torch.autograd.grad(outs, inputs, grads))

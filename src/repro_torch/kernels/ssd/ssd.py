@@ -18,9 +18,22 @@ note; :func:`launch_plan` reports the grid and the shared memory.  It
 matches the plain version
 (:func:`~repro_torch.kernels.ssd.ref.ssd_chunked_ref`) to float rounding.
 
-For tensors on the CPU the wrapper runs the plain version; for CUDA tensors
-it launches the kernel or raises — it never falls back.
-``ssd_scan.launches`` counts kernel launches (the plain path does not count).
+Training differentiates the scan.  On the CPU autograd runs through the
+plain version.  For CUDA tensors that need a gradient the call goes through
+``_SsdScan``: its forward launches the same kernel, which then also writes
+the state entering every chunk, (B, T/chunk, H, P, N) float32 — the chunk's
+flow-out facet, one contiguous block per chunk — and saves them; its
+backward launches the hand-written ``csrc/ssd_scan_bwd.cu``
+(:func:`ssd_scan_bwd`), which walks the chunks in reverse carrying the
+state's gradient and returns dx, dloga, dB and dC (its design is in the
+source's header note; :func:`backward_plan` reports its grids, scratch and
+shared memory).  A call that needs no gradient (serving) launches the
+scan alone, as before.
+
+For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
+they launch the kernels or raise — they never fall back.
+``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count kernel launches
+(the plain paths do not count).
 """
 from __future__ import annotations
 
@@ -31,11 +44,13 @@ import math
 
 import torch
 
-from .ref import ssd_chunked_ref
+from .ref import ssd_chunked_bwd_ref, ssd_chunked_ref
 
-__all__ = ["ssd_scan", "launch_plan", "SsdPlan"]
+__all__ = ["ssd_scan", "ssd_scan_bwd", "launch_plan", "SsdPlan", "backward_plan",
+           "SsdBwdPlan"]
 
 _SOURCE = "ssd_scan"
+_BWD_SOURCE = "ssd_scan_bwd"
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,27 +136,81 @@ def _kernel():
     from repro_torch.kernels import _build
 
     fn = _build.library(_SOURCE).ssd_scan
-    fn.argtypes = [_INT, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
+    fn.argtypes = [_INT, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                    _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
     fn.restype = _INT
     return fn
 
 
-def ssd_scan(
-    x: torch.Tensor,  # (B, T, H, P)
-    loga: torch.Tensor,  # (B, T, H) float32
-    Bmat: torch.Tensor,  # (B, T, N)
-    C: torch.Tensor,  # (B, T, N)
-    *,
-    chunk: int = 128,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan; returns (y (B,T,H,P), final state (B,H,P,N))."""
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    from repro_torch.kernels import _build
+
+    fn = _build.library(_BWD_SOURCE).ssd_scan_bwd
+    fn.argtypes = [_INT, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
+                   _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
+    fn.restype = _INT
+    return fn
+
+
+#: threads per CTA of every backward launch; the n- and p-tiles of its
+#: launches (``kThreads``, ``kNT``, ``kNT3``, ``kPT`` in the source)
+BWD_THREADS = 256
+_NT, _NT3, _PT = 64, 32, 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdBwdPlan:
+    """One ``ssd_scan_bwd`` call: its four launches in order (``gram``,
+    ``dstate``, ``dgram``, ``dbc``) with their grids and dynamic shared
+    memory per CTA (BWD_THREADS threads each), the scratch it allocates (G
+    then dG, and dS_next of every chunk) and the per-chunk states the
+    forward saved for it, in bytes."""
+
+    grids: dict
+    smem: dict
+    scratch: int
+    saved: int
+
+    @property
+    def ctas(self) -> dict:
+        return {k: math.prod(g) for k, g in self.grids.items()}
+
+
+def backward_plan(B: int, T: int, H: int, P: int, N: int, L: int) -> SsdBwdPlan:
+    """The launches ``ssd_scan_bwd`` makes for x (B, T, H, P), state size N
+    and chunk L (either dtype: the kernels compute in float32 from shared
+    memory).  Mirrors ``ssd_scan_bwd_smem`` of the source.  Plain Python:
+    the tests call it without a card."""
+    if not 0 < L <= MAX_CHUNK:
+        raise ValueError(f"chunk {L} outside (0, {MAX_CHUNK}]")
+    if not 0 < N <= MAX_STATE:
+        raise ValueError(f"state size N={N} outside (0, {MAX_STATE}]")
+    if H > 65535 or B > 65535:
+        raise ValueError(f"heads {H} and rows {B} must each be <= 65535 (the grid's y and z)")
+    if T % L:
+        raise ValueError(f"T={T} must divide by chunk={L}")
+    nc = T // L
+    floats = {
+        "gram": 2 * L * (_NT + 1),
+        "dstate": P_BLOCK * (N + 1) + L * P_BLOCK + L * L + 2 * L * (_NT + 1) + 3 * L,
+        "dgram": L * L + 2 * L * (_PT + 1) + L + 2 * 16 * L,
+        "dbc": (L * L + 2 * L * (_NT3 + 1) + 2 * L * (_PT + 1) + 2 * _PT * (_NT3 + 1) + 4 * L
+                + 2 * 16 * L + BWD_THREADS),
+    }
+    grids = {"gram": (nc, B, 1), "dstate": (-(-P // P_BLOCK), H, B), "dgram": (nc, B, 1),
+             "dbc": (nc, B, 1)}
+    states = 4 * B * nc * H * P * N
+    return SsdBwdPlan(grids, {k: 4 * v for k, v in floats.items()},
+                      4 * B * nc * L * L + states, states)
+
+
+def _check(x, loga, Bmat, C, chunk) -> None:
     if x.dim() != 4 or loga.dim() != 3 or Bmat.dim() != 3 or C.shape != Bmat.shape:
         raise ValueError(f"want x (B,T,H,P), loga (B,T,H), B/C (B,T,N), got "
                          f"{tuple(x.shape)}, {tuple(loga.shape)}, {tuple(Bmat.shape)}, "
                          f"{tuple(C.shape)}")
     Bb, T, H, P = x.shape
-    N = Bmat.shape[-1]
     if loga.shape != (Bb, T, H) or Bmat.shape[:2] != (Bb, T):
         raise ValueError(f"loga {tuple(loga.shape)} / B {tuple(Bmat.shape)} do not match "
                          f"x {tuple(x.shape)}")
@@ -152,33 +221,144 @@ def ssd_scan(
         raise ValueError(f"x, loga, B and C must share one device, got "
                          f"{sorted(map(str, devices))}")
     device = x.device
-    if device.type == "cpu":
-        return ssd_chunked_ref(x, loga, Bmat, C, chunk)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"tensors must be on a CUDA device or the CPU, got {device}")
+    if device.type == "cpu":
+        return
     if x.dtype not in _CODES or Bmat.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"x, B and C must share a dtype of {sorted(map(str, _CODES))}, got "
                         f"{x.dtype}, {Bmat.dtype}, {C.dtype}")
     if loga.dtype != torch.float32:
         raise TypeError(f"loga must be float32, got {loga.dtype}")
+    if not all(t.is_contiguous() for t in (x, loga, Bmat, C)):
+        raise ValueError("x, loga, B and C must be contiguous")
+
+
+def _forward(x, loga, Bmat, C, chunk: int, save_states: bool):
+    """One ``ssd_scan`` launch on CUDA tensors: (y, final state, the state
+    entering every chunk or None)."""
+    Bb, T, H, P = x.shape
+    N = Bmat.shape[-1]
     plan = launch_plan(Bb, T, H, P, N, chunk, x.dtype)
     if plan.smem > MAX_SMEM:
         raise ValueError(f"state + chunk need {plan.smem} B of shared memory > {MAX_SMEM}")
-    if not all(t.is_contiguous() for t in (x, loga, Bmat, C)):
-        raise ValueError("x, loga, B and C must be contiguous")
     y = torch.empty_like(x)
-    state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=device)
-    fn = _kernel()
-    with torch.cuda.device(device):
+    state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    states = (torch.empty((Bb, T // chunk, H, P, N), dtype=torch.float32, device=x.device)
+              if save_states else None)
+    with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_CODES[x.dtype], x.data_ptr(), loga.data_ptr(), Bmat.data_ptr(), C.data_ptr(),
-                y.data_ptr(), state.data_ptr(), Bb, T, H, P, N, chunk, stream)
+        rc = _kernel()(_CODES[x.dtype], x.data_ptr(), loga.data_ptr(), Bmat.data_ptr(),
+                       C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                       None if states is None else states.data_ptr(), Bb, T, H, P, N, chunk,
+                       stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed for x {tuple(x.shape)} {x.dtype}, "
                            f"N {N}, chunk {chunk}: cudaError_t {rc}")
     ssd_scan.launches += 1
-    return y, state
+    return y, state, states
+
+
+class _SsdScan(torch.autograd.Function):
+    """``ssd_scan`` on CUDA tensors that need a gradient: the forward kernel,
+    which also saves the per-chunk states, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, loga, Bmat, C, chunk):
+        y, state, states = _forward(x, loga, Bmat, C, chunk, save_states=True)
+        ctx.save_for_backward(x, loga, Bmat, C, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, loga, Bmat, C, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, dloga, dB, dC = ssd_scan_bwd(x, loga, Bmat, C, dy, dstate, chunk=ctx.chunk,
+                                         states=states)
+        return dx, dloga, dB, dC, None
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, T, H, P)
+    loga: torch.Tensor,  # (B, T, H) float32
+    Bmat: torch.Tensor,  # (B, T, N)
+    C: torch.Tensor,  # (B, T, N)
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan; returns (y (B,T,H,P), final state (B,H,P,N)).
+    Differentiable: on CUDA tensors through ``_SsdScan`` (the backward
+    kernel), on the CPU through the plain version."""
+    _check(x, loga, Bmat, C, chunk)
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, loga, Bmat, C, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, loga, Bmat, C)):
+        return _SsdScan.apply(x, loga, Bmat, C, chunk)
+    return _forward(x, loga, Bmat, C, chunk, save_states=False)[:2]
 
 
 #: kernel launches since the last reset (set to 0 to reset)
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,
+    loga: torch.Tensor,
+    Bmat: torch.Tensor,
+    C: torch.Tensor,
+    dy: torch.Tensor,  # (B, T, H, P): the gradient of y
+    dstate: torch.Tensor | None = None,  # (B, H, P, N): the final state's (None: zero)
+    *,
+    chunk: int = 128,
+    states: torch.Tensor | None = None,  # (B, T/chunk, H, P, N) from the forward (CUDA)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scan's gradient: (dx, dloga, dB, dC), dx/dB/dC in the inputs'
+    dtype and dloga in float32.  For CUDA tensors one ``ssd_scan_bwd.cu``
+    call (four launches on the current stream) over the forward's saved
+    per-chunk ``states``; for CPU tensors the plain version (autograd
+    through ``ssd_chunked_ref``; ``states`` unused)."""
+    _check(x, loga, Bmat, C, chunk)
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not match x "
+                         f"{tuple(x.shape)} on {x.device}")
+    if x.device.type == "cpu":
+        return ssd_chunked_bwd_ref(x, loga, Bmat, C, dy, dstate, chunk)
+    Bb, T, H, P = x.shape
+    N, nc = Bmat.shape[-1], T // chunk
+    if states is None or states.shape != (Bb, nc, H, P, N) or states.dtype != torch.float32:
+        raise ValueError(f"the backward kernel reads the forward's per-chunk states, float32 "
+                         f"{(Bb, nc, H, P, N)}; got "
+                         f"{None if states is None else (tuple(states.shape), states.dtype)}")
+    if dstate is not None and (dstate.shape != (Bb, H, P, N) or dstate.device != x.device):
+        raise ValueError(f"dstate {tuple(dstate.shape)} does not match {(Bb, H, P, N)}")
+    plan = backward_plan(Bb, T, H, P, N, chunk)
+    if max(plan.smem.values()) > MAX_SMEM:
+        raise ValueError(f"the backward needs {plan.smem} B of shared memory > {MAX_SMEM}")
+    dy = dy.to(x.dtype).contiguous()
+    states = states.contiguous()
+    if dstate is not None:
+        dstate = dstate.to(torch.float32).contiguous()
+    dx = torch.empty_like(x)
+    dB, dC = torch.empty_like(Bmat), torch.empty_like(C)
+    dloga = torch.empty_like(loga)
+    gram = torch.empty((Bb, nc, chunk, chunk), dtype=torch.float32, device=x.device)
+    dstates = torch.empty_like(states)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bwd_kernel()(_CODES[x.dtype], x.data_ptr(), loga.data_ptr(), Bmat.data_ptr(),
+                           C.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                           None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+                           dloga.data_ptr(), dB.data_ptr(), dC.data_ptr(), gram.data_ptr(),
+                           dstates.data_ptr(), Bb, T, H, P, N, chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed for x {tuple(x.shape)} "
+                           f"{x.dtype}, N {N}, chunk {chunk}: cudaError_t {rc}")
+    ssd_scan_bwd.launches += 1
+    return dx, dloga, dB, dC
+
+
+#: kernel calls since the last reset (set to 0 to reset)
+ssd_scan_bwd.launches = 0

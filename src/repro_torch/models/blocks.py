@@ -30,6 +30,7 @@ from .layers import (
     decode_cross_attention,
     mlp,
     rms_norm,
+    torch_dtype,
 )
 from .mamba2 import Mamba2, MambaCache, mamba_decode, mamba_prefill, mamba_train
 from .moe import MoE, moe
@@ -52,30 +53,33 @@ class Block(nn.Module):
     ``dec``: + ``norm_x`` and the ``cross`` attention), then ``norm2`` + FFN
     unless the FFN kind is ``none``."""
 
-    def __init__(self, kind: str, fk: str, cfg: ArchConfig, *, device=None, generator=None):
+    def __init__(self, kind: str, fk: str, cfg: ArchConfig, *, device=None, generator=None,
+                 dtype=None):
         super().__init__()
         if kind not in _KINDS:
             raise ValueError(kind)
         self.kind, self.fk, self.cfg = kind, fk, cfg
+        kw = dict(device=device, generator=generator, dtype=dtype)
         self.norm1 = _param(torch.ones(cfg.d_model, device=device))
         mixer = Mamba2 if kind == "mamba" else Attention
-        self.mixer = mixer(cfg, device=device, generator=generator)
+        self.mixer = mixer(cfg, **kw)
         if kind == "cross":
             self.gate = _param(torch.zeros((), device=device))
         if kind == "dec":
             self.norm_x = _param(torch.ones(cfg.d_model, device=device))
-            self.cross = Attention(cfg, device=device, generator=generator)
+            self.cross = Attention(cfg, **kw)
         if fk != "none":
             self.norm2 = _param(torch.ones(cfg.d_model, device=device))
             ffn = MoE if fk == "moe" else MLP
-            self.ffn = ffn(cfg, device=device, generator=generator)
+            self.ffn = ffn(cfg, **kw)
 
 
 def init_position(kind: str, fk: str, cfg: ArchConfig, *, generator=None,
-                  device=None) -> Block:
+                  device=None, dtype=None) -> Block:
     """One layer (the reference's ``init_position``): weights drawn from
-    ``generator``, or zeros to be loaded when it is None."""
-    return Block(kind, fk, cfg, device=device, generator=generator)
+    ``generator``, or zeros to be loaded when it is None; matrices in
+    ``dtype`` (default: the compute dtype)."""
+    return Block(kind, fk, cfg, device=device, generator=generator, dtype=dtype)
 
 
 def cache_position(kind: str, cfg: ArchConfig, batch: int, seq: int,
@@ -101,9 +105,10 @@ def cache_position(kind: str, cfg: ArchConfig, batch: int, seq: int,
 
 def _cross_kv(m: Attention, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The context's K/V for decode cross-attention (no RoPE)."""
-    sc = src.to(m.wk.dtype)
-    k = torch.einsum("bsd,dhk->bshk", sc, m.wk)
-    v = torch.einsum("bsd,dhk->bshk", sc, m.wv)
+    cd = torch_dtype(m.cfg.compute_dtype)
+    sc = src.to(cd)
+    k = torch.einsum("bsd,dhk->bshk", sc, m.wk.to(cd))
+    v = torch.einsum("bsd,dhk->bshk", sc, m.wv.to(cd))
     if m.cfg.qk_norm:
         k = rms_norm(k, m.k_norm)
     return k, v

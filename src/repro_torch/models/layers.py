@@ -1,14 +1,16 @@
 """Core model layers in PyTorch: norms, RoPE, GQA attention (prefill and
 decode over the facet-layout KV cache), SwiGLU MLP, embeddings — the port
-of ``repro/models/layers.py`` for inference.
+of ``repro/models/layers.py``.
 
 Each layer is an ``nn.Module`` holding its weights (``Attention``, ``MLP``,
 ``Embedding``) plus a module-level function under the reference's name
 (``attention``, ``decode_attention_blocks``, ``decode_cross_attention``,
 ``mlp``, ``embed``, ``unembed``), so each has a counterpart to find.
-Weights used in matrix products are kept in the configuration's compute
-dtype, cast once at load time (the reference casts its float32 parameters
-per call, which gives the same values); norm scales stay float32.
+Weights used in matrix products are kept in ``dtype``: the configuration's
+compute dtype by default (serving: cast once at load time), or its
+``param_dtype`` (training: float32 master weights).  Every use casts the
+weight to the compute dtype, as the reference's ``.astype(cd)`` does — for
+weights already in it the cast is the identity.  Norm scales stay float32.
 
 Prefill attention (causal self-attention, the encoder's bidirectional
 attention and cross-attention to a context) is the reference's flash-style
@@ -89,7 +91,14 @@ def _normal(shape, scale: float, dtype: torch.dtype, generator, device) -> torch
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter, frozen until a training model asks for its gradient
+    (``LM(..., dtype=)``)."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def _cd(cfg: ArchConfig) -> torch.dtype:
+    """The configuration's compute dtype."""
+    return torch_dtype(cfg.compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -118,14 +127,14 @@ class KVCache:
 
 class Attention(nn.Module):
     """GQA self-attention weights: wq (d, Hq, Dh), wk/wv (d, Hkv, Dh),
-    wo (Hq, Dh, d) in the compute dtype; q/k norm scales (Dh,) in float32
-    when the configuration has ``qk_norm``."""
+    wo (Hq, Dh, d) in ``dtype`` (default: the compute dtype); q/k norm
+    scales (Dh,) in float32 when the configuration has ``qk_norm``."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         d, hq, hkv, dh = cfg.d_model, cfg.padded_q_heads, cfg.stored_kv_heads, cfg.head_dim
-        cd = torch_dtype(cfg.compute_dtype)
+        cd = dtype or _cd(cfg)
         shapes = {"wq": (d, hq, dh), "wk": (d, hkv, dh), "wv": (d, hkv, dh), "wo": (hq, dh, d)}
         for name, shape in shapes.items():
             setattr(self, name, _param(torch.zeros(shape, dtype=cd, device=device)))
@@ -160,10 +169,11 @@ def _project_qkv(m: Attention, x, kv_x, q_positions, kv_positions):
     """Q from ``x`` and K/V from ``kv_x``; RoPE on Q (K) at ``q_positions``
     (``kv_positions``), none where they are None."""
     cfg = m.cfg
-    xc, kc = x.to(m.wq.dtype), kv_x.to(m.wq.dtype)
-    q = torch.einsum("bsd,dhk->bshk", xc, m.wq)
-    k = torch.einsum("bsd,dhk->bshk", kc, m.wk)
-    v = torch.einsum("bsd,dhk->bshk", kc, m.wv)
+    cd = _cd(cfg)
+    xc, kc = x.to(cd), kv_x.to(cd)
+    q = torch.einsum("bsd,dhk->bshk", xc, m.wq.to(cd))
+    k = torch.einsum("bsd,dhk->bshk", kc, m.wk.to(cd))
+    v = torch.einsum("bsd,dhk->bshk", kc, m.wv.to(cd))
     if cfg.qk_norm:
         q = rms_norm(q, m.q_norm)
         k = rms_norm(k, m.k_norm)
@@ -265,7 +275,8 @@ def attention(
 
         cache.k.copy_(to_blocks(k))
         cache.v.copy_(to_blocks(v))
-    y = torch.einsum("bshk,hkd->bsd", out.to(m.wo.dtype), m.wo)
+    cd = _cd(m.cfg)
+    y = torch.einsum("bshk,hkd->bsd", out.to(cd), m.wo.to(cd))
     return y, cache
 
 
@@ -290,7 +301,8 @@ def decode_attention_blocks(
     lengths = (pos + 1).expand(B)
     out = decode_attention(q[:, 0].contiguous(), cache.k, cache.v, lengths)  # (B, Hq, Dh)
     out = out.reshape(B, 1, cfg.padded_q_heads, cfg.head_dim)
-    y = torch.einsum("bshk,hkd->bsd", out.to(m.wo.dtype), m.wo)
+    cd = _cd(cfg)
+    y = torch.einsum("bshk,hkd->bsd", out.to(cd), m.wo.to(cd))
     return y, cache
 
 
@@ -305,7 +317,8 @@ def decode_cross_attention(
     source's K/V are dense (B, S_src, Hkv, Dh), not in the block layout."""
     cfg = m.cfg
     B = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x.to(m.wq.dtype), m.wq)
+    cd = _cd(cfg)
+    q = torch.einsum("bsd,dhk->bshk", x.to(cd), m.wq.to(cd))
     if cfg.qk_norm:
         q = rms_norm(q, m.q_norm)
     hkv = k.shape[2]
@@ -314,7 +327,7 @@ def decode_cross_attention(
     s = torch.einsum("bhgk,bshk->bhgs", qg, k.float()) * (cfg.head_dim ** -0.5)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshk->bhgk", w, v.float()).reshape(B, 1, hkv * g, cfg.head_dim)
-    return torch.einsum("bshk,hkd->bsd", out.to(m.wo.dtype), m.wo)
+    return torch.einsum("bshk,hkd->bsd", out.to(cd), m.wo.to(cd))
 
 
 # ---------------------------------------------------------------------------
@@ -322,13 +335,15 @@ def decode_cross_attention(
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """SwiGLU weights w1/w3 (d, f) and w2 (f, d) in the compute dtype."""
+    """SwiGLU weights w1/w3 (d, f) and w2 (f, d) in ``dtype`` (default: the
+    compute dtype)."""
 
     def __init__(self, cfg: ArchConfig, d_ff: int | None = None, *, device=None,
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
+        self.cfg = cfg
         d, f = cfg.d_model, d_ff or cfg.d_ff
-        cd = torch_dtype(cfg.compute_dtype)
+        cd = dtype or _cd(cfg)
         self.w1 = _param(torch.zeros((d, f), dtype=cd, device=device))
         self.w3 = _param(torch.zeros((d, f), dtype=cd, device=device))
         self.w2 = _param(torch.zeros((f, d), dtype=cd, device=device))
@@ -341,9 +356,10 @@ class MLP(nn.Module):
 
 
 def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
-    xc = x.to(m.w1.dtype)
-    h = silu(xc @ m.w1) * (xc @ m.w3)
-    return h @ m.w2
+    cd = _cd(m.cfg)
+    xc = x.to(cd)
+    h = silu(xc @ m.w1.to(cd)) * (xc @ m.w3.to(cd))
+    return h @ m.w2.to(cd)
 
 
 # ---------------------------------------------------------------------------
@@ -351,13 +367,14 @@ def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class Embedding(nn.Module):
-    """Token table (padded_vocab, d) and output head (d, padded_vocab) in the
-    compute dtype."""
+    """Token table (padded_vocab, d) and output head (d, padded_vocab) in
+    ``dtype`` (default: the compute dtype)."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
         super().__init__()
+        self.cfg = cfg
         vp, d = cfg.padded_vocab, cfg.d_model
-        cd = torch_dtype(cfg.compute_dtype)
+        cd = dtype or _cd(cfg)
         self.table = _param(torch.zeros((vp, d), dtype=cd, device=device))
         self.head = _param(torch.zeros((d, vp), dtype=cd, device=device))
         if generator is not None:
@@ -368,8 +385,9 @@ class Embedding(nn.Module):
 
 
 def embed(m: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return m.table[tokens.to(m.table.device)]
+    return m.table.to(_cd(m.cfg))[tokens.to(m.table.device)]
 
 
 def unembed(m: Embedding, x: torch.Tensor) -> torch.Tensor:
-    return x.to(m.head.dtype) @ m.head  # (B, S, padded_vocab)
+    cd = _cd(m.cfg)
+    return x.to(cd) @ m.head.to(cd)  # (B, S, padded_vocab)

@@ -1,7 +1,14 @@
 """Language models in PyTorch (dense / MoE / SSM / hybrid / VLM, and the
-encoder-decoder) — the port of ``repro/models/lm.py`` for inference:
-``init_lm``, ``init_caches``, ``encode``, ``lm_forward`` (forward only: no
-remat, no gradient), ``lm_prefill`` and ``lm_decode``.
+encoder-decoder) — the port of ``repro/models/lm.py``: ``init_lm``,
+``init_caches``, ``encode``, ``lm_forward`` (the training forward:
+differentiable, with the reference's remat per period and per position),
+``lm_prefill`` and ``lm_decode`` (no gradient).
+
+A serving model keeps its matrices in the compute dtype and its parameters
+frozen (``init_lm``'s default); a training model (``dtype=cfg.param_dtype``,
+float32 master weights, as the reference's ``init_lm``) has every
+parameter require its gradient, and each use casts the weight to the
+compute dtype.
 
 The reference stacks the parameters of its repeated period and scans over
 them; here each layer is its own ``Block`` in ``LM.layers`` (layer
@@ -20,9 +27,14 @@ CPU (``device="cpu"``), where the kernels run their plain versions.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.cfa.api import resolve_device
 
@@ -30,53 +42,142 @@ from .blocks import apply_position, cache_position, ffn_kind, init_position
 from .config import ArchConfig
 from .layers import Embedding, _param, attention, embed, mlp, rms_norm, torch_dtype, unembed
 
-__all__ = ["LM", "Encoder", "init_lm", "init_caches", "encode", "lm_forward", "lm_prefill",
-           "lm_decode"]
+__all__ = ["LM", "Encoder", "ParamLeaf", "param_leaves", "init_lm", "init_caches", "encode",
+           "lm_forward", "lm_prefill", "lm_decode"]
 
 
 class Encoder(nn.Module):
     """``enc_layers`` attention + MLP blocks and a final norm."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList(
-            init_position("attn", "mlp", cfg, device=device, generator=generator)
+            init_position("attn", "mlp", cfg, device=device, generator=generator, dtype=dtype)
             for _ in range(cfg.enc_layers))
         self.final_norm = _param(torch.ones(cfg.d_model, device=device))
 
 
 class LM(nn.Module):
     """Embedding, ``n_layers`` blocks, final norm; the encoder when the
-    configuration has one."""
+    configuration has one.  ``dtype`` None: a serving model (matrices in
+    the compute dtype, parameters frozen); a dtype: a training model
+    (matrices in it, every parameter requires its gradient)."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None):
+    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
         super().__init__()
         device = resolve_device(device)
+        dtype = None if dtype is None else torch_dtype(dtype)
         self.cfg = cfg
-        self.embed = Embedding(cfg, device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
+        self.embed = Embedding(cfg, **kw)
         self.layers = nn.ModuleList(
-            init_position(kind, ffn_kind(cfg, i), cfg, device=device, generator=generator)
+            init_position(kind, ffn_kind(cfg, i), cfg, **kw)
             for _ in range(cfg.n_periods) for i, kind in enumerate(cfg.period))
         self.final_norm = _param(torch.ones(cfg.d_model, device=device))
         if cfg.is_encdec:
-            self.encoder = Encoder(cfg, device=device, generator=generator)
+            self.encoder = Encoder(cfg, **kw)
+        if dtype is not None:
+            self.requires_grad_(True)
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
 
 
+@dataclasses.dataclass(frozen=True)
+class ParamLeaf:
+    """One leaf of the reference's ``init_lm`` pytree and the port's
+    parameters that hold it: ``path`` is its key path (e.g. ``("periods",
+    "pos0", "mixer", "w_x")``); a ``stacked`` leaf is the reference's
+    stack of ``parts`` on a leading axis (one part per period, or per
+    encoder layer), an unstacked one has one part."""
+
+    path: tuple
+    parts: tuple
+    stacked: bool
+
+    @property
+    def shape(self) -> tuple:
+        s = tuple(self.parts[0].shape)
+        return (len(self.parts), *s) if self.stacked else s
+
+    def value(self) -> torch.Tensor:
+        """The leaf as the reference holds it (a stacked copy, or the
+        parameter itself)."""
+        return torch.stack([p.detach() for p in self.parts]) if self.stacked else \
+            self.parts[0].detach()
+
+    @torch.no_grad()
+    def take_grad(self) -> torch.Tensor:
+        """The parts' gradients as one leaf (zeros where a part has none),
+        leaving the parts without one: a stacked leaf is filled part by part,
+        each part's gradient freed once copied."""
+        if not self.stacked:
+            p = self.parts[0]
+            g, p.grad = (torch.zeros_like(p) if p.grad is None else p.grad), None
+            return g
+        out = torch.zeros(self.shape, dtype=self.parts[0].dtype, device=self.parts[0].device)
+        for i, p in enumerate(self.parts):
+            if p.grad is not None:
+                out[i].copy_(p.grad)
+                p.grad = None
+        return out
+
+    def views(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """A leaf-shaped tensor as one view per part."""
+        return list(t.unbind(0)) if self.stacked else [t]
+
+    @torch.no_grad()
+    def assign(self, value: torch.Tensor) -> None:
+        """Write a leaf-shaped value back into the parts, in place."""
+        for i, p in enumerate(self.parts):
+            p.copy_(value[i] if self.stacked else value)
+
+
+#: the port's parameters that are the reference's norms, ``{"scale": s}``
+_NORMS = ("norm", "norm1", "norm2", "norm_x", "final_norm", "q_norm", "k_norm")
+
+
+def param_leaves(model: "LM") -> list[ParamLeaf]:
+    """The model's parameters grouped as the reference's pytree leaves, in
+    its flatten order (``jax.tree.leaves``: dict keys sorted at every
+    level): layer ``p * len(period) + i`` is part ``p`` of period position
+    ``i``'s leaves, encoder layer ``j`` part ``j`` of the encoder's, and a
+    norm's leaf ends in ``"scale"``.  The optimizer and the checkpoint walk
+    this list, so that moments and checkpoints have the reference's leaves."""
+    n = len(model.cfg.period)
+    groups: dict[tuple, dict[int, nn.Parameter]] = {}
+    single: dict[tuple, nn.Parameter] = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[-1] in _NORMS:
+            parts.append("scale")
+        if parts[0] == "layers":
+            i = int(parts[1])
+            groups.setdefault(("periods", f"pos{i % n}", *parts[2:]), {})[i // n] = p
+        elif parts[:2] == ["encoder", "layers"]:
+            groups.setdefault(("encoder", "layers", *parts[3:]), {})[int(parts[2])] = p
+        else:
+            single[tuple(parts)] = p
+    leaves = [ParamLeaf(path, (p,), False) for path, p in single.items()]
+    leaves += [ParamLeaf(path, tuple(per[j] for j in range(len(per))), True)
+               for path, per in groups.items()]
+    return sorted(leaves, key=lambda leaf: leaf.path)
+
+
 def init_lm(cfg: ArchConfig, *, generator: torch.Generator | None = None,
-            device="cuda") -> LM:
+            device="cuda", dtype=None) -> LM:
     """A model with random weights drawn from ``generator`` (the reference's
     shapes, scales and distributions; not its values).  The generator must
-    live on ``device``; without one, a CPU or CUDA generator seeded 0."""
+    live on ``device``; without one, a CPU or CUDA generator seeded 0.
+    ``dtype``: None for a serving model; ``cfg.param_dtype`` for a training
+    model (the reference's ``init_lm``; see :class:`LM`)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
     with torch.no_grad():
-        return LM(cfg, device=device, generator=generator)
+        return LM(cfg, device=device, generator=generator, dtype=dtype)
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
@@ -88,7 +189,6 @@ def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
             for _ in range(cfg.n_periods) for kind in cfg.period]
 
 
-@torch.no_grad()
 def encode(enc: Encoder, frames: torch.Tensor) -> torch.Tensor:
     """Bidirectional encoder over (stub) frame embeddings (B, T, d)."""
     x = frames.to(torch_dtype(enc.cfg.compute_dtype))
@@ -118,18 +218,76 @@ def _run(model: LM, x, mode: str, caches, ctx):
     return x, aux
 
 
-@torch.no_grad()
-def lm_forward(model: LM, tokens: torch.Tensor, *, cross_src=None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward over a full sequence: logits (B, S, padded_vocab) and the
-    MoE load-balance aux loss summed over layers (float32; 0 without
-    experts).  ``cross_src`` (B, S_src, d) is the context of a VLM or
-    encoder-decoder model."""
+#: aten matrix products whose outputs the ``"dots"`` policy keeps (the
+#: reference's ``jax.checkpoint_policies.checkpoint_dots``)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat_policy: str | None):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): recompute
+    everything in the backward (policy None, ``"none"``, ``"nothing"``) or
+    keep the matrix products' outputs (``"dots"``)."""
+    if remat_policy in (None, "none", "nothing"):
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat_policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat_policy {remat_policy!r}")
+
+
+def _train_layers(model: LM, x, ctx, remat: bool, remat_policy: str | None):
+    """The layers in train mode, period by period as the reference scans
+    them: with ``remat``, each period under a checkpoint, and inside a
+    period of several positions each position too (the reference's
+    ``inner_remat``)."""
+    n = len(model.cfg.period)
+
+    def position(block, x):
+        return apply_position(block, x, "train", None, ctx)[::2]
+
+    def period(p, x):
+        aux = 0.0
+        for block in model.layers[p * n:(p + 1) * n]:
+            fn = functools.partial(position, block)
+            if remat and n > 1:
+                fn = _remat(fn, remat_policy)
+            x, a = fn(x)
+            aux = aux + a
+        return x, aux
+
+    aux = 0.0
+    for p in range(model.cfg.n_periods):
+        fn = functools.partial(period, p)
+        if remat:
+            fn = _remat(fn, remat_policy)
+        x, a = fn(x)
+        aux = aux + a
+    return x, aux
+
+
+def lm_forward(model: LM, tokens: torch.Tensor, *, cross_src=None, remat: bool = True,
+               remat_policy: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward over a full sequence: logits (B, S,
+    padded_vocab) and the MoE load-balance aux loss summed over layers
+    (float32; 0 without experts), both differentiable.  ``cross_src`` (B,
+    S_src, d) is the context of a VLM or encoder-decoder model.  ``remat``
+    recomputes each period (and each position of a multi-position period)
+    in the backward instead of keeping its activations; ``remat_policy``
+    ``"dots"`` keeps the matrix products' outputs.  Remat applies only
+    where a gradient is being recorded."""
     tokens = torch.as_tensor(tokens, device=model.device)
     x = embed(model.embed, tokens)
     ctx = {"positions": torch.arange(tokens.shape[1], device=model.device)[None, :],
            "cross_src": _context(model, cross_src)}
-    x, aux = _run(model, x, "train", None, ctx)
+    remat = remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in model.parameters())
+    x, aux = _train_layers(model, x, ctx, remat, remat_policy)
     logits = unembed(model.embed, rms_norm(x, model.final_norm))
     return logits, torch.as_tensor(aux, dtype=torch.float32, device=model.device)
 

@@ -2,11 +2,13 @@
 passing — the port of ``repro/models/mamba2.py`` for inference.
 
 The sequence is tiled into chunks; the inter-chunk SSM state is the chunk's
-CFA flow-out facet.  Prefill runs the hand-written ``ssd_scan`` kernel (its
-plain version on the CPU) once, for both the block's output and the decode
-cache's final state.  Decode carries a constant-size cache — the SSM state
-plus the causal-conv tails — and is one ``ssd_decode_step`` per token in
-plain PyTorch (the reference has no kernel for it either).
+CFA flow-out facet.  The training forward and prefill run the hand-written
+``ssd_scan`` kernel (its plain version on the CPU) once — prefill for both
+the block's output and the decode cache's final state; training
+differentiates it through the hand-written backward kernel.  Decode carries
+a constant-size cache — the SSM state plus the causal-conv tails — and is
+one ``ssd_decode_step`` per token in plain PyTorch (the reference has no
+kernel for it either).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.core.cfa.api import resolve_device
 from repro_torch.kernels.ssd import ssd_decode_step, ssd_scan
 
 from .config import ArchConfig
-from .layers import _normal, _param, rms_norm, silu, torch_dtype
+from .layers import _cd, _normal, _param, rms_norm, silu
 
 __all__ = ["Mamba2", "mamba_train", "mamba_prefill", "mamba_decode", "MambaCache"]
 
@@ -51,15 +53,16 @@ class MambaCache:
 
 
 class Mamba2(nn.Module):
-    """SSD mixer weights: the projections and conv kernels in the compute
-    dtype; ``dt_bias``, ``A_log``, ``D`` and the norm scale in float32."""
+    """SSD mixer weights: the projections and conv kernels in ``dtype``
+    (default: the compute dtype); ``dt_bias``, ``A_log``, ``D`` and the norm
+    scale in float32."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         d, din, n, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
         K = cfg.ssm_conv
-        cd = torch_dtype(cfg.compute_dtype)
+        cd = dtype or _cd(cfg)
         # (name, shape, init scale) in the reference's order
         self._mats = [("w_x", (d, din), d ** -0.5), ("w_z", (d, din), d ** -0.5),
                       ("w_B", (d, n), d ** -0.5), ("w_C", (d, n), d ** -0.5),
@@ -83,6 +86,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = N
     """Depthwise causal conv via K shifted adds, summed in order in x's dtype.
     x: (B,S,C); w: (K,C).  ``tail``: (B, K-1, C) history for decode."""
     K = w.shape[0]
+    w = w.to(x.dtype)
     if tail is None:
         xp = F.pad(x, (0, 0, K - 1, 0))
     else:
@@ -95,8 +99,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = N
 
 
 def _projections(m: Mamba2, x: torch.Tensor):
-    xc = x.to(m.w_x.dtype)
-    return xc @ m.w_x, xc @ m.w_z, xc @ m.w_B, xc @ m.w_C, xc @ m.w_dt  # xi, z, B, C, dt
+    cd = _cd(m.cfg)
+    xc = x.to(cd)
+    return tuple(xc @ w.to(cd) for w in (m.w_x, m.w_z, m.w_B, m.w_C, m.w_dt))  # xi, z, B, C, dt
 
 
 def _decays(m: Mamba2, dt: torch.Tensor):
@@ -136,7 +141,8 @@ def _mamba_full(m: Mamba2, x: torch.Tensor):
     y = y + m.D[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, h * pd)
     y = rms_norm(y * silu(z), m.norm)
-    return y.to(m.w_out.dtype) @ m.w_out, (xi, Bm, Cm), state
+    cd = _cd(cfg)
+    return y.to(cd) @ m.w_out.to(cd), (xi, Bm, Cm), state
 
 
 def mamba_train(m: Mamba2, x: torch.Tensor) -> torch.Tensor:
@@ -177,4 +183,5 @@ def mamba_decode(m: Mamba2, x: torch.Tensor, cache: MambaCache) -> tuple[torch.T
     y = y[:, None] + m.D[None, None, :, None] * xh.float()
     y = y.reshape(B, 1, h * pd)
     y = rms_norm(y.to(x.dtype) * silu(z), m.norm)
-    return y.to(m.w_out.dtype) @ m.w_out, cache
+    cd = _cd(cfg)
+    return y.to(cd) @ m.w_out.to(cd), cache

@@ -23,20 +23,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ArchConfig
-from .layers import _normal, _param, silu, torch_dtype
+from .layers import _cd, _normal, _param, silu
 
 __all__ = ["MoE", "init_moe", "moe", "top_k"]
 
 
 class MoE(nn.Module):
     """Router (d, E) in float32; expert weights w1/w3 (E, d, f) and w2
-    (E, f, d) in the compute dtype."""
+    (E, f, d) in ``dtype`` (default: the compute dtype)."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None):
+    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.moe_experts
-        cd = torch_dtype(cfg.compute_dtype)
+        cd = dtype or _cd(cfg)
         self.router = _param(torch.zeros((d, e), device=device))
         self.w1 = _param(torch.zeros((e, d, f), dtype=cd, device=device))
         self.w3 = _param(torch.zeros((e, d, f), dtype=cd, device=device))
@@ -51,10 +51,10 @@ class MoE(nn.Module):
 
 
 def init_moe(cfg: ArchConfig, *, generator: torch.Generator | None = None,
-             device=None) -> MoE:
+             device=None, dtype=None) -> MoE:
     """An MoE layer (the reference's ``init_moe``): weights drawn from
     ``generator``, or zeros to be loaded when it is None."""
-    return MoE(cfg, device=device, generator=generator)
+    return MoE(cfg, device=device, generator=generator, dtype=dtype)
 
 
 def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -71,7 +71,7 @@ def moe(m: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     cfg = m.cfg
     B, S, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
-    cd = m.w1.dtype
+    cd = _cd(cfg)
     T = B * S
     gs = min(cfg.moe_group_size, T)
     pad = (-T) % gs
@@ -109,9 +109,9 @@ def moe(m: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     dispatch, combine = dispatch.to(cd), combine.to(cd)
     # expert-facet buffers: one contiguous block of admitted tokens per expert
     ein = torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cd))
-    h = silu(torch.einsum("gecd,edf->gecf", ein, m.w1))
-    h = h * torch.einsum("gecd,edf->gecf", ein, m.w3)
-    eout = torch.einsum("gecf,efd->gecd", h, m.w2)
+    h = silu(torch.einsum("gecd,edf->gecf", ein, m.w1.to(cd)))
+    h = h * torch.einsum("gecd,edf->gecf", ein, m.w3.to(cd))
+    eout = torch.einsum("gecf,efd->gecd", h, m.w2.to(cd))
     out = torch.einsum("gsec,gecd->gsd", combine, eout)
     out = out.reshape(G * gs, d)[:T].reshape(B, S, d)
 

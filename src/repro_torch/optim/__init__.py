@@ -1,0 +1,14 @@
+from .optimizers import (
+    OptState,
+    adamw_init,
+    adafactor_init,
+    make_optimizer,
+    global_norm,
+    clip_by_global_norm,
+)
+from .schedule import cosine_warmup
+
+__all__ = [
+    "OptState", "adamw_init", "adafactor_init", "make_optimizer", "global_norm",
+    "clip_by_global_norm", "cosine_warmup",
+]

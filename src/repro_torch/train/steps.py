@@ -1,0 +1,124 @@
+"""Entry points: train_step / prefill_step / decode_step builders — the port
+of ``repro/train/steps.py``.
+
+``make_train_step`` builds ``(model, opt_state, batch) -> (model, opt_state,
+metrics)``: the loss's gradients by autograd (through the hand-written
+``ssd_scan`` backward kernel on CUDA), optional error-feedback compression,
+global-norm clipping, the cosine schedule and the optimizer, which updates
+the model's parameters in place.  ``shard_grads`` pins gradients to the
+parameters' sharding in the reference; on one device it is a no-op here
+until the distribution slice lands.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.distributed.compression import ef_compress, ef_init
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.lm import LM, lm_decode, lm_forward, lm_prefill, param_leaves
+from repro_torch.optim import clip_by_global_norm, cosine_warmup, make_optimizer
+
+__all__ = ["TrainHParams", "loss_fn", "make_train_step", "make_prefill_step",
+           "make_decode_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    peak_lr: float = 3e-4
+    warmup: int = 200
+    total_steps: int = 10_000
+    clip_norm: float = 1.0
+    aux_coef: float = 0.01  # MoE load-balance loss coefficient
+    accum: int = 1  # gradient-accumulation microbatches
+    remat: bool = True
+    remat_policy: str = "none"  # none | dots | nothing
+    shard_grads: bool = True  # pin grads to param sharding (one device: no-op)
+    compress_grads: bool = False  # int8 error-feedback DP compression
+
+    def policy(self) -> str | None:
+        """``lm_forward``'s ``remat_policy`` (None: recompute everything)."""
+        return None if self.remat_policy == "none" else self.remat_policy
+
+
+def loss_fn(model: LM, batch: dict, cfg: ArchConfig, hp: TrainHParams):
+    """Next-token cross entropy (padded-vocab masked) + MoE aux loss, in the
+    reference's form: the padded vocab is an additive row of -1e30, the
+    target is picked by a masked sum."""
+    tokens = batch["tokens"]  # (B, S)
+    logits, aux = lm_forward(model, tokens, cross_src=batch.get("context"),
+                             remat=hp.remat, remat_policy=hp.policy())
+    tokens = torch.as_tensor(tokens, device=logits.device)
+    lf = logits[:, :-1]
+    targets = tokens[:, 1:]
+    vp = cfg.padded_vocab
+    vocab_ids = torch.arange(vp, device=lf.device)[None, None, :]
+    pad_mask = torch.where(vocab_ids >= cfg.vocab, -1e30, 0.0).to(torch.float32)
+    lf = lf.to(torch.float32) + pad_mask
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    shifted = lf - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    picked = torch.sum(torch.where(vocab_ids == targets[..., None], shifted, 0.0),
+                       dim=-1) + m[..., 0]
+    ce = (lse - picked).mean()
+    return ce + hp.aux_coef * aux, {"ce": ce, "aux": aux}
+
+
+def _grads(model: LM, batch: dict, cfg: ArchConfig, hp: TrainHParams, leaves):
+    """(loss, metrics, one gradient per leaf) for one batch."""
+    for leaf in leaves:
+        for p in leaf.parts:
+            p.grad = None
+    loss, metrics = loss_fn(model, batch, cfg, hp)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        [leaf.take_grad() for leaf in leaves]
+
+
+def make_train_step(cfg: ArchConfig, hp: TrainHParams = TrainHParams()):
+    """(model, opt_state, batch) -> (model, opt_state, metrics); the model's
+    parameters are updated in place."""
+    _, opt_update = make_optimizer(cfg.optimizer)
+
+    def train_step(model: LM, opt_state, batch: dict):
+        leaves = param_leaves(model)
+        if hp.accum > 1:
+            grads, loss = None, 0.0
+            for i in range(hp.accum):
+                mb = {k: v.reshape(hp.accum, v.shape[0] // hp.accum, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                l, _, g = _grads(model, mb, cfg, hp, leaves)
+                grads = [gi.to(torch.float32) for gi in g] if grads is None else \
+                    [a + b for a, b in zip(grads, g)]
+                loss = loss + l
+            grads = [g / hp.accum for g in grads]
+            loss = loss / hp.accum
+            metrics = {}
+        else:
+            loss, metrics, grads = _grads(model, batch, cfg, hp, leaves)
+        if hp.compress_grads:
+            # stateless form, as the reference's step: the residual is dropped
+            grads, _ = ef_compress(grads, ef_init(grads))
+        grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
+        lr = cosine_warmup(opt_state.step, peak_lr=hp.peak_lr, warmup=hp.warmup,
+                           total=hp.total_steps)
+        opt_state = opt_update(grads, opt_state, leaves, lr)
+        metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
+        return model, opt_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, *, max_seq: int | None = None):
+    def prefill_step(model: LM, tokens, context=None):
+        return lm_prefill(model, tokens, cross_src=context, max_seq=max_seq)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    def decode_step(model: LM, caches, token, position):
+        return lm_decode(model, caches, token, position)
+
+    return decode_step

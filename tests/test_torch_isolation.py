@@ -50,7 +50,10 @@ def test_the_scan_sees_the_whole_port():
             "src/repro_torch/core/cfa/transform.py",
             "src/repro_torch/kernels/stencil/stencil.py",
             "src/repro_torch/models/lm.py", "src/repro_torch/serve/scheduler.py",
-            "src/repro_torch/launch/serve.py"} <= rel
+            "src/repro_torch/launch/serve.py", "src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/optim/schedule.py", "src/repro_torch/train/steps.py",
+            "src/repro_torch/train/loop.py", "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/data/pipeline.py", "src/repro_torch/launch/train.py"} <= rel
     # and it recognises every spelling of a forbidden import
     probe = ROOT / "src" / "repro_torch" / "cfa.py"
     names = _imported_modules(probe)
@@ -70,6 +73,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch.cfa, repro_torch.interop, repro_torch.kernels.stencil\n"
         "import repro_torch.models.lm, repro_torch.serve.scheduler, repro_torch.launch.serve\n"
+        "import repro_torch.optim, repro_torch.train.steps, repro_torch.train.loop\n"
+        "import repro_torch.checkpoint, repro_torch.data, repro_torch.launch.train\n"
         "from repro_torch.kernels import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -28,7 +28,20 @@ and handed to both packages:
 * ``launch_plan`` at the serve shapes (>= 128 CTAs at batch 1, shared memory
   within a block's 232448 B) and what it rejects;
 * ``T % chunk != 0`` and the other rejections, the launch counter and the C
-  entry point's arity.
+  entry point's arity;
+* the gradient: autograd through the port's ``ssd_scan`` on the CPU (the
+  plain version) against ``jax.vjp`` of the reference model's
+  ``_ssd_chunked`` with seeded cotangents for y and the final state, at the
+  test shapes and through the model's padding path (T not a multiple of the
+  chunk), float32, within 1e-5 max|want| + 1e-7;
+* the backward kernel's four launches (``csrc/ssd_scan_bwd.cu``: G, the
+  reverse walk carrying dS, dG with each head's intra-chunk dl, the dB/dC
+  and dl terms and the reverse cumsum) transliterated to PyTorch in float64,
+  against the plain backward (``ssd_chunked_bwd_ref``) within 1e-5
+  max|want|; ``_SsdScan`` (the autograd function CUDA tensors go through)
+  with its two launches replaced by plain stand-ins, against autograd;
+  ``backward_plan`` at every card shape (shared memory within a block's
+  232448 B) and the backward's C entry point's arity.
 """
 import ast
 import re
@@ -42,10 +55,13 @@ import jax  # noqa: F401  (both frameworks in one process)
 import jax.numpy as jnp
 
 from repro.kernels.ssd import ssd_decode_step as jax_decode_step
+from repro.models.mamba2 import _ssd_chunked as jax_ssd_chunked
 from repro.kernels.ssd import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd import ssd_scan_ref as jax_ssd_scan_ref
-from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_decode_step, ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd import (ssd_chunked_bwd_ref, ssd_chunked_ref, ssd_decode_step,
+                                     ssd_scan, ssd_scan_bwd, ssd_scan_ref)
 from repro_torch.kernels.ssd import ssd as ssd_mod
+from repro_torch.models.mamba2 import _ssd as port_ssd
 
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
 
@@ -362,7 +378,7 @@ def test_c_entry_point_matches_the_ctypes_binding():
     argtypes = next(node.value for node in ast.walk(tree)
                     if isinstance(node, ast.Assign)
                     and any(getattr(t, "attr", None) == "argtypes" for t in node.targets))
-    assert len(argtypes.elts) == n_params == 14
+    assert len(argtypes.elts) == n_params == 15
 
 
 @pytest.mark.cuda
@@ -385,3 +401,227 @@ def test_cuda_tensors_launch_the_kernel_never_the_plain_version(monkeypatch):
     assert ssd_scan.launches == before + 1
     torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s, ws, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = (1e-5, 1e-7)  # (relative to max|want|, absolute)
+
+
+def _grad_close(got: torch.Tensor, want, tol=GRAD_TOL):
+    want = np.asarray(want, np.float64)
+    err = np.abs(got.detach().double().numpy() - want).max()
+    assert err <= tol[0] * np.abs(want).max() + tol[1], (err, np.abs(want).max())
+
+
+def _cotangents(seed, B, T, H, P, N):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, T, H, P)).astype(np.float32),
+            rng.normal(size=(B, H, P, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", CASES + [(2, 50, 3, 8, 4, 16)])
+def test_gradient_matches_the_reference_models_ssd(B, T, H, P, N, chunk):
+    """dx, dloga, dB, dC through the port's SSD on the CPU (the model's
+    ``_ssd``: the padding path where T % chunk != 0) against ``jax.vjp``
+    of the reference's ``_ssd_chunked``, cotangents for y and the state."""
+    x, loga, Bm, C = _inputs(31, B, T, H, P, N)
+    dy, ds = _cotangents(32, B, T, H, P, N)
+    args = [a.requires_grad_() for a in _torch(x, loga, Bm, C)]
+    y, s = port_ssd(*args, chunk)
+    got = torch.autograd.grad([y, s], args, [torch.from_numpy(dy), torch.from_numpy(ds)])
+    _, vjp = jax.vjp(lambda *a: jax_ssd_chunked(*a, chunk), *(jnp.asarray(a) for a in
+                                                               (x, loga, Bm, C)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    for g, w in zip(got, want):
+        _grad_close(g, w)
+
+
+def _bwd_launches(x, loga, Bm, C, dy, dstate, L):
+    """The four launches of ``ssd_scan_bwd.cu``, in float64: (1) G = C B^T
+    per chunk; (2) per (row, head), chunks in reverse: dS_next out, dx = the
+    intra term W^T dy plus exp(l_L - l_s) dS_next B_s, then dS <- exp(l_L) dS
+    + sum_t exp(l_t) dy_t (outer) C_t; (3) per chunk, over the heads: E =
+    [s<=t] exp(l_t - l_s) dy_t.x_s, dG = sum_h E, dl = row sums - column sums
+    of G o E; (4) per chunk: R = exp(l_t) dy S_prev, U = exp(l_L - l_s) x
+    dS_next, their dl terms (and the last step's), dC = dG B + sum_h R, dB =
+    dG^T C + sum_h U, dloga = the reverse cumsum of dl."""
+    x, loga, Bm, C, dy = (torch.as_tensor(a).double() for a in (x, loga, Bm, C, dy))
+    Bb, T, H, P = x.shape
+    N, nc = Bm.shape[-1], T // L
+    states = torch.zeros(Bb, nc, H, P, N, dtype=torch.float64)  # the forward's saved states
+    S = torch.zeros(Bb, H, P, N, dtype=torch.float64)
+    for c in range(nc):
+        states[:, c] = S
+        sl = slice(c * L, (c + 1) * L)
+        lc = torch.cumsum(loga[:, sl], 1)
+        S = torch.exp(lc[:, -1])[..., None, None] * S + torch.einsum(
+            "blhp,bln->bhpn", x[:, sl] * torch.exp(lc[:, -1:] - lc)[..., None], Bm[:, sl])
+    G = torch.stack([torch.einsum("btn,bsn->bts", C[:, c * L:(c + 1) * L],
+                                  Bm[:, c * L:(c + 1) * L]) for c in range(nc)], 1)
+    mask = torch.tril(torch.ones(L, L, dtype=torch.bool))[None, :, :, None]
+    dx, dstates = torch.zeros_like(x), torch.zeros_like(states)
+    dS = (torch.zeros(Bb, H, P, N, dtype=torch.float64) if dstate is None
+          else torch.as_tensor(dstate).double())
+    for c in reversed(range(nc)):
+        sl = slice(c * L, (c + 1) * L)
+        lc = torch.cumsum(loga[:, sl], 1)
+        W = torch.where(mask, torch.exp(lc[:, :, None] - lc[:, None]) * G[:, c][..., None], 0.0)
+        dstates[:, c] = dS
+        dx[:, sl] = torch.einsum("btsh,bthp->bshp", W, dy[:, sl]) + torch.exp(
+            lc[:, -1:] - lc)[..., None] * torch.einsum("bhpn,bsn->bshp", dS, Bm[:, sl])
+        dS = torch.exp(lc[:, -1])[..., None, None] * dS + torch.einsum(
+            "bth,bthp,btn->bhpn", torch.exp(lc), dy[:, sl], C[:, sl])
+    dl, dG = torch.zeros_like(loga), torch.zeros_like(G)
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L)
+        lc = torch.cumsum(loga[:, sl], 1)
+        E = torch.where(mask, torch.exp(lc[:, :, None] - lc[:, None])
+                        * torch.einsum("bthp,bshp->btsh", dy[:, sl], x[:, sl]), 0.0)
+        dG[:, c] = E.sum(-1)
+        A = G[:, c][..., None] * E
+        dl[:, sl] = A.sum(2) - A.sum(1)
+    dB, dC = torch.zeros_like(Bm), torch.zeros_like(C)
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L)
+        lc = torch.cumsum(loga[:, sl], 1)
+        R = torch.exp(lc)[..., None] * torch.einsum("bthp,bhpn->bthn", dy[:, sl], states[:, c])
+        U = torch.exp(lc[:, -1:] - lc)[..., None] * torch.einsum("bthp,bhpn->bthn", x[:, sl],
+                                                                  dstates[:, c])
+        rowb = torch.einsum("btn,bthn->bth", Bm[:, sl], U)
+        blk = dl[:, sl] + torch.einsum("btn,bthn->bth", C[:, sl], R) - rowb
+        blk[:, -1] += torch.exp(lc[:, -1]) * (dstates[:, c] * states[:, c]).sum((-1, -2)) \
+            + rowb.sum(1)
+        dl[:, sl] = torch.flip(torch.cumsum(torch.flip(blk, [1]), 1), [1])
+        dC[:, sl] = torch.einsum("bts,bsn->btn", dG[:, c], Bm[:, sl]) + R.sum(2)
+        dB[:, sl] = torch.einsum("bts,btn->bsn", dG[:, c], C[:, sl]) + U.sum(2)
+    return dx, dl, dB, dC
+
+
+@pytest.mark.parametrize("with_dstate", [False, True])
+@pytest.mark.parametrize("B,T,H,P,N,L", [(2, 64, 4, 16, 8, 16), (1, 96, 3, 5, 7, 32),
+                                         (2, 24, 2, 8, 4, 8), (1, 154, 2, 16, 16, 77)])
+def test_the_backward_kernels_launches_match_the_plain_backward(B, T, H, P, N, L, with_dstate):
+    x, loga, Bm, C = _inputs(37, B, T, H, P, N)
+    dy, ds = _cotangents(38, B, T, H, P, N)
+    ds = ds if with_dstate else None
+    got = _bwd_launches(x, loga, Bm, C, dy, ds, L)
+    want = ssd_chunked_bwd_ref(*_torch(x, loga, Bm, C), torch.from_numpy(dy),
+                               None if ds is None else torch.from_numpy(ds), L)
+    for g, w in zip(got, want):
+        _grad_close(g, w.numpy(), (1e-5, 0.0))
+
+
+def test_the_autograd_function_saves_the_states_and_feeds_the_backward(monkeypatch):
+    """``_SsdScan`` (CUDA tensors that need a gradient) with its launches
+    replaced by plain stand-ins: the forward's per-chunk states reach the
+    backward, a final state that is not used gives no dstate, and the
+    gradients equal autograd through the plain version."""
+    B, T, H, P, N, L = 2, 64, 4, 16, 8, 16
+    x, loga, Bm, C = _inputs(41, B, T, H, P, N)
+    dy, _ = _cotangents(42, B, T, H, P, N)
+    seen = {}
+
+    def fwd(x, loga, Bmat, C, chunk, save_states):
+        y, s = ssd_chunked_ref(x, loga, Bmat, C, chunk)
+        states = torch.stack([ssd_chunked_ref(x[:, :c * chunk], loga[:, :c * chunk],
+                                              Bmat[:, :c * chunk], C[:, :c * chunk], chunk)[1]
+                              if c else torch.zeros_like(s) for c in range(T // chunk)], 1)
+        return y, s, states if save_states else None
+
+    def bwd(x, loga, Bmat, C, dy, dstate, *, chunk, states):
+        seen.update(states=states, dstate=dstate, chunk=chunk)
+        return tuple(g.to(t.dtype) for g, t in zip(
+            _bwd_launches(x, loga, Bmat, C, dy, dstate, chunk), (x, loga, Bmat, C)))
+
+    monkeypatch.setattr(ssd_mod, "_forward", fwd)
+    monkeypatch.setattr(ssd_mod, "ssd_scan_bwd", bwd)
+    args = [a.requires_grad_() for a in _torch(x, loga, Bm, C)]
+    y, _ = ssd_mod._SsdScan.apply(*args, L)
+    got = torch.autograd.grad(y, args, torch.from_numpy(dy))
+    assert seen["chunk"] == L and seen["dstate"] is None
+    assert seen["states"].shape == (B, T // L, H, P, N)
+    want = ssd_chunked_bwd_ref(*(a.detach() for a in args), torch.from_numpy(dy), None, L)
+    for g, w in zip(got, want):
+        _grad_close(g, w.numpy())
+
+
+def test_the_backward_wrapper_on_cpu_is_the_plain_version_and_does_not_count():
+    x, loga, Bm, C = _torch(*_inputs(43, 1, 32, 2, 4, 4))
+    dy = torch.from_numpy(_cotangents(44, 1, 32, 2, 4, 4)[0])
+    ssd_scan_bwd.launches = 0
+    got = ssd_scan_bwd(x, loga, Bm, C, dy, chunk=8)
+    assert ssd_scan_bwd.launches == 0
+    want = ssd_chunked_bwd_ref(x, loga, Bm, C, dy, None, 8)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan_bwd(x, loga, Bm, C, dy[:, :8], chunk=8)
+
+
+#: every shape the card runs the backward at: chip_smoke.py's SSD_CASES, a
+#: short prompt's chunk and mamba2-370m's training shape
+BWD_SHAPES = [(2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32), (2, 96, 8, 8, 4, 32),
+              (1, 1024, 32, 64, 128, 128), (4, 1024, 32, 64, 128, 128),
+              (1, 256, 2, 64, 256, 128), (1, 64, 8, 16, 16, 8), (1, 77, 32, 64, 128, 77),
+              (8, 4096, 32, 64, 128, 128)]
+
+
+@pytest.mark.parametrize("B,T,H,P,N,L", BWD_SHAPES)
+def test_backward_plan_fits_shared_memory_at_every_card_shape(B, T, H, P, N, L):
+    plan = ssd_mod.backward_plan(B, T, H, P, N, L)
+    assert max(plan.smem.values()) <= ssd_mod.MAX_SMEM
+    assert plan.grids["dstate"] == (-(-P // ssd_mod.P_BLOCK), H, B)
+    assert plan.grids["gram"] == plan.grids["dgram"] == plan.grids["dbc"] == (T // L, B, 1)
+    assert plan.saved == 4 * B * T // L * H * P * N
+    assert plan.scratch == plan.saved + 4 * B * T // L * L * L
+    if (B, T) == (8, 4096):  # the saved states of one layer at the training shape
+        assert plan.saved == 8 * 32 * 32 * 64 * 128 * 4 == 268435456
+
+
+def test_backward_plan_rejects_what_the_kernels_reject():
+    with pytest.raises(ValueError, match="chunk 129 outside"):
+        ssd_mod.backward_plan(1, 129, 2, 16, 16, 129)
+    with pytest.raises(ValueError, match="state size N=257"):
+        ssd_mod.backward_plan(1, 128, 2, 16, 257, 128)
+    with pytest.raises(ValueError, match="must divide"):
+        ssd_mod.backward_plan(1, 100, 2, 16, 16, 64)
+
+
+def test_the_backward_c_entry_point_matches_its_ctypes_binding():
+    src = (SRC / "ssd" / "csrc" / "ssd_scan_bwd.cu").read_text()
+    sig = re.search(r'extern "C" int ssd_scan_bwd\((.*?)\)\s*\{', src, re.S).group(1)
+    n_params = len([p for p in sig.split(",") if p.strip()])
+    tree = ast.parse((SRC / "ssd" / "ssd.py").read_text())
+    fn = next(node for node in tree.body
+              if isinstance(node, ast.FunctionDef) and node.name == "_bwd_kernel")
+    argtypes = next(node.value for node in ast.walk(fn) if isinstance(node, ast.Assign)
+                    and any(getattr(t, "attr", None) == "argtypes" for t in node.targets))
+    assert len(argtypes.elts) == n_params == 21
+
+
+@pytest.mark.cuda
+def test_cuda_gradient_launches_the_backward_kernel(monkeypatch):
+    """On a card, a gradient through ``ssd_scan`` launches the forward once
+    and the backward kernel once, never the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    B, T, H, P, N, chunk = CASES[0]
+    x, loga, Bm, C = (a.cuda() for a in _torch(*_inputs(5, B, T, H, P, N)))
+    dy = torch.from_numpy(_cotangents(6, B, T, H, P, N)[0]).cuda()
+    want = ssd_chunked_bwd_ref(x, loga, Bm, C, dy, None, chunk)
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ssd_mod, "ssd_chunked_ref", plain)
+    monkeypatch.setattr(ssd_mod, "ssd_chunked_bwd_ref", plain)
+    fwd, bwd = ssd_scan.launches, ssd_scan_bwd.launches
+    args = [a.requires_grad_() for a in (x, loga, Bm, C)]
+    y, _ = ssd_scan(*args, chunk=chunk)
+    got = torch.autograd.grad(y, args, dy)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (fwd + 1, bwd + 1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
