@@ -12,7 +12,8 @@ result line unless every phase passed):
 2.  build    — compiles every kernel source from the checkout (one ``nvcc``
                per source, started together) and prints ptxas's register /
                shared-memory lines and the number of HMMA instructions in
-               ``ssd_scan``'s SASS (``cuobjdump -sass``), which must be > 0;
+               ``ssd_scan``'s and ``ssd_scan_bwd``'s SASS (``cuobjdump
+               -sass``), each of which must be > 0;
 3.  kernels  — ``stencil_tiles`` against its plain PyTorch version on random
                inputs, every program of ``execute_tiles`` in float32 and
                float64, by its launch plan and forced into every cluster of
@@ -246,7 +247,9 @@ result line unless every phase passed):
                shape (B 1, T 1024) in bfloat16 by graph replay, beside its
                plain version, the forward at the same shape, its bytes
                bound and its FP32-pipe figure (no single PyTorch call
-               computes the SSD's gradient: no library yardstick);
+               computes the SSD's gradient: no library yardstick), and each
+               of its four launches' device time by kernel name from one
+               profiled call;
 15. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases run in the order device, build, kernels, fetch, small, storage,
@@ -473,15 +476,17 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 log(f"[build] {name}: {line.strip()}")
-    # ssd_scan's bf16 chunk products run on the tensor cores: HMMA in its SASS
+    # the SSD's bf16 chunk products, forward and backward, run on the tensor
+    # cores: HMMA in their SASS
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._library_path("ssd_scan"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    hmma = sum(1 for line in sass.splitlines() if "HMMA" in line)
-    log(f"[build] ssd_scan: {hmma} HMMA instructions in its SASS ({cuobjdump} -sass)")
-    if hmma == 0:
-        raise AssertionError("ssd_scan's SASS holds no HMMA: its products are not on the "
-                             "tensor cores")
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        hmma = sum(1 for line in sass.splitlines() if "HMMA" in line)
+        log(f"[build] {name}: {hmma} HMMA instructions in its SASS ({cuobjdump} -sass)")
+        if hmma == 0:
+            raise AssertionError(f"{name}'s SASS holds no HMMA: its products are not on the "
+                                 f"tensor cores")
 
 
 def phase_kernels(device) -> float:
@@ -2502,6 +2507,12 @@ def _profile_step(trainer, batch: dict) -> dict | None:
         f" idle {1 - busy / wall:.1%}); top kernels by device time: "
         + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms ({t / 1e6 / busy:.1%}) x{c}"
                     for k, t, c in rows[:8]))
+    bwd = [(_kernel_name(k), t, c) for k, t, c in rows
+           if _kernel_name(k).startswith(SSD_BWD_KERNELS)]
+    bwd_s = sum(t for _, t, _ in bwd) / 1e6
+    log(f"[train] ssd_scan_bwd over the step: {bwd_s * 1e3:.3f} ms of device time "
+        f"({bwd_s / busy:.1%} of the busy time): "
+        + ", ".join(f"{k} {t / 1e3:.3f} ms x{c}" for k, t, c in bwd))
     return {"wall_s": wall, "busy_s": busy}
 
 
@@ -2701,6 +2712,83 @@ def _ssd_bwd_bound(B: int, T: int, H: int, P: int, N: int, L: int,
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_f32,)
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler row's kernel name without its namespace and arguments."""
+    return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(", 1)[0]
+
+
+#: the kernels of csrc/ssd_scan_bwd.cu (both routes)
+SSD_BWD_KERNELS = ("local_mma", "local_fma", "pass_kernel", "head_mma", "head_fma", "cross_mma",
+                   "cross_fma")
+
+
+def _launch_ms(fn) -> dict:
+    """Device ms of each kernel one call of ``fn`` launches, by kernel name,
+    from one CUDA-only profiler window after a warm-up call; empty when the
+    profiler reports no kernel rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = _kernel_name(e.key)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+def _ssd_bwd_launch_rows(shapes) -> list[dict]:
+    """Each ``ssd_scan_bwd`` launch's device ms at each (B, T, H, P, N,
+    chunk) in bfloat16, from one profiled call on seeded inputs."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.kernels.ssd import ssd_scan_bwd
+
+    device = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for B, T, H, P, N, L in shapes:
+        x = rng_tensor(rng, (B, T, H, P), torch.bfloat16, device)
+        loga = -rng_tensor(rng, (B, T, H), torch.float32, device).abs() * 0.5
+        Bm = (rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)).bfloat16()
+        C = (rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)).bfloat16()
+        dy = rng_tensor(rng, (B, T, H, P), torch.bfloat16, device)
+        _, _, states = ssd_mod._forward(x, loga, Bm, C, L, save_states=True)
+        rows.append(_launch_ms(lambda: ssd_scan_bwd(x, loga, Bm, C, dy, chunk=L, states=states)))
+        del x, loga, Bm, C, dy, states
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: the per-launch profile runs in a fresh process: late in this script's
+#: process the profiler reports no kernel rows (a CUDA-only window after the
+#: serve and train phases' windows and graph captures)
+_LAUNCH_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+print("LAUNCH_MS " + json.dumps(chip_smoke._ssd_bwd_launch_rows({shapes!r})))
+"""
+
+
+def _ssd_bwd_launch_ms(shapes) -> list[dict]:
+    """:func:`_ssd_bwd_launch_rows` in a child process (waited for); empty
+    rows, and a logged reason, if the child fails."""
+    res = subprocess.run([sys.executable, "-c", _LAUNCH_CHILD.format(root=str(ROOT),
+                                                                     shapes=list(shapes))],
+                         capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    for line in res.stdout.splitlines():
+        if line.startswith("LAUNCH_MS "):
+            return json.loads(line[len("LAUNCH_MS "):])
+    log(f"[timing] ssd_scan_bwd per launch: the child process failed (rc {res.returncode}): "
+        f"{res.stderr[-800:]}")
+    return [{} for _ in shapes]
+
+
 def phase_train_timing(device) -> dict:
     """``ssd_scan_bwd`` at the training and serve shapes (bf16) by graph
     replay, beside its plain version, the forward at the same shape, its
@@ -2708,9 +2796,11 @@ def phase_train_timing(device) -> dict:
     from repro_torch.kernels.ssd import ssd as ssd_mod
     from repro_torch.kernels.ssd import ssd_chunked_bwd_ref, ssd_scan, ssd_scan_bwd
 
+    shapes = (SSD_TRAIN_SHAPE, (1, SERVE_PROMPTS[1], 32, 64, 128, 128))
+    launch_rows = _ssd_bwd_launch_ms(shapes)
     rng = np.random.default_rng(SEED)
     row = None
-    for B, T, H, P, N, L in (SSD_TRAIN_SHAPE, (1, SERVE_PROMPTS[1], 32, 64, 128, 128)):
+    for (B, T, H, P, N, L), per_launch in zip(shapes, launch_rows):
         x = rng_tensor(rng, (B, T, H, P), torch.bfloat16, device)
         loga = -rng_tensor(rng, (B, T, H), torch.float32, device).abs() * 0.5
         Bm = (rng_tensor(rng, (B, T, N), torch.float32, device) / math.sqrt(N)).bfloat16()
@@ -2729,14 +2819,19 @@ def phase_train_timing(device) -> dict:
                             warmup=1, repeats=3)[0]
         bound_ms, bound_by, f32_ms = _ssd_bwd_bound(B, T, H, P, N, L, 2)
         plan = ssd_mod.backward_plan(B, T, H, P, N, L)
+        shape = "the training shape" if B > 1 else "the serve shape"
         log(f"[timing] ssd_scan_bwd B={B} T={T} H={H} P={P} N={N} chunk={L} bfloat16 "
-            f"({'the training shape' if B > 1 else 'the serve shape'}): kernel {_fmt(m)}; "
+            f"({shape}): kernel {_fmt(m)}; "
             f"plain (autograd through ssd_chunked_ref) {plain_ms:.6f} ms (eager CUDA events); "
             f"the forward ssd_scan at this shape {_fmt(fwd)}; bound {bound_ms:.6f} ms "
             f"({bound_by}), {bound_ms / m['ms']:.1%} of bound; the FP32-pipe operations bound "
             f"{f32_ms:.6f} ms; launches {plan.grids} = {plan.ctas} CTAs of 256 threads, "
             f"shared memory {plan.smem} B, scratch {plan.scratch} B, saved states {plan.saved} "
             f"B; max|kernel-plain| {err!r} ({ex:.3f} x the limit)")
+        log(f"[timing] ssd_scan_bwd ({shape}) per launch, device ms of one profiled call in a "
+            f"fresh process: " + (
+            ", ".join(f"{k} {v:.6f}" for k, v in per_launch.items()) or
+            "not measured (the profiler reported no kernel rows)"))
         if not ex <= 1.0:
             raise AssertionError(f"ssd_scan_bwd differs from plain at the path shape: {err!r}")
         if row is None:

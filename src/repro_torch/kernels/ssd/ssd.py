@@ -24,10 +24,11 @@ plain version.  For CUDA tensors that need a gradient the call goes through
 the state entering every chunk, (B, T/chunk, H, P, N) float32 — the chunk's
 flow-out facet, one contiguous block per chunk — and saves them; its
 backward launches the hand-written ``csrc/ssd_scan_bwd.cu``
-(:func:`ssd_scan_bwd`), which walks the chunks in reverse carrying the
-state's gradient and returns dx, dloga, dB and dC (its design is in the
-source's header note; :func:`backward_plan` reports its grids, scratch and
-shared memory).  A call that needs no gradient (serving) launches the
+(:func:`ssd_scan_bwd`) and returns dx, dloga, dB and dC: chunk-parallel
+products (in bfloat16 on the tensor cores) around one cheap serial pass that
+carries the state's gradient from the last chunk to the first (its design is
+in the source's header note; :func:`backward_plan` reports its grids,
+scratch and shared memory).  A call that needs no gradient (serving) launches the
 scan alone, as before.
 
 For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
@@ -148,27 +149,36 @@ def _bwd_kernel():
 
     fn = _build.library(_BWD_SOURCE).ssd_scan_bwd
     fn.argtypes = [_INT, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-                   _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
+                   _VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
     fn.restype = _INT
     return fn
 
 
-#: threads per CTA of every backward launch; the n- and p-tiles of its
-#: launches (``kThreads``, ``kNT``, ``kNT3``, ``kPT`` in the source)
+#: threads per CTA of every backward launch; the p-tile and n-chunk of the
+#: bf16 launches, the columns of dB / dC per cross CTA, the p-tile and
+#: n-chunk of the f32 launches (``kThreads``, ``kPT``, ``kKN``, ``kNG``,
+#: ``kFP``, ``kFN`` in the source)
 BWD_THREADS = 256
-_NT, _NT3, _PT = 64, 32, 32
+_PT, _KN, _NG, _FP, _FN = 64, 128, 64, 32, 32
+#: the backward's launches, in order
+BWD_LAUNCHES = ("local", "pass", "head", "cross")
 
 
 @dataclasses.dataclass(frozen=True)
 class SsdBwdPlan:
-    """One ``ssd_scan_bwd`` call: its four launches in order (``gram``,
-    ``dstate``, ``dgram``, ``dbc``) with their grids and dynamic shared
-    memory per CTA (BWD_THREADS threads each), the scratch it allocates (G
-    then dG, and dS_next of every chunk) and the per-chunk states the
-    forward saved for it, in bytes."""
+    """One ``ssd_scan_bwd`` call: its four launches in order (``local``: U
+    of every chunk, its decays and G^T; ``pass``: the state-passing
+    recurrence; ``head``: dx and dloga per head and chunk; ``cross``: dB and
+    dC per chunk, summed over the heads), each with its grid (x, y, 1) and
+    dynamic shared memory per CTA (BWD_THREADS threads each), the route of
+    the chunk products (``"mma"``: bf16 tensor cores; ``"fma"``: f32 FMAs),
+    the scratch it allocates (dS_next of every chunk, G^T per chunk, each
+    chunk and head's decay tables) and the per-chunk states the forward saved
+    for it, in bytes."""
 
     grids: dict
     smem: dict
+    route: str
     scratch: int
     saved: int
 
@@ -177,32 +187,62 @@ class SsdBwdPlan:
         return {k: math.prod(g) for k, g in self.grids.items()}
 
 
-def backward_plan(B: int, T: int, H: int, P: int, N: int, L: int) -> SsdBwdPlan:
+def _tab_floats(lp: int) -> int:
+    """Floats of one (row, chunk, head) block of the tables scratch: the
+    cumsum of the log-decays, the decay factors R, Q, exp(l_t), exp(l_L -
+    l_t) (``lp`` each) and M (8 x 8): ``tab_floats`` of the source."""
+    return 5 * lp + 64
+
+
+def _bwd_smem(L: int, N: int, route: str) -> dict:
+    """Shared memory per CTA of each launch: ``ssd_scan_bwd_smem`` of the
+    source (its ``local_layout``, ``head_layout``, ``cross_layout`` and
+    ``*_fma_floats``)."""
+    if route == "fma":
+        local = max(2 * L * (_NG + 1), L * (_FP + 1) + L * (_NG + 1) + _r16(L) + L)
+        head = (L * (L + 1) + 4 * L * (_FP + 1) + 2 * _FP * (_FN + 1) + 3 * L + 32 * L + 4 * L
+                + BWD_THREADS)
+        cross = L * (L + 1) + 2 * L * (_FP + 1) + _FP * (_NG + 1) + L * (_NG + 1) + 2 * L
+        return {"local": 4 * local, "pass": 0, "head": 4 * head, "cross": 4 * cross}
+    lp, np_ = _r16(L), _r16(N)
+    arr = lp * (np_ + 8) * 2
+    ldp, ldn, nb = _PT + 8, _KN + 8, lp // 16
+    local = max(2 * arr, arr + 2 * _PT * (lp + 8) * 2 + 2 * lp * 4 + lp * ldp * 2)
+    head = lp * ldn * 2 + 2 * lp * ldp * 2 + 2 * _PT * ldn * 2 + 4 * (_tab_floats(lp) + 11 * lp)
+    cross = (3 * lp * ldp * 2 + 2 * _PT * ldp * 2 + nb * (nb + 1) // 2 * 256 * 4
+             + 4 * _tab_floats(lp))
+    return {"local": local, "pass": 0, "head": head, "cross": cross}
+
+
+def backward_plan(B: int, T: int, H: int, P: int, N: int, L: int,
+                  dtype: torch.dtype = torch.bfloat16) -> SsdBwdPlan:
     """The launches ``ssd_scan_bwd`` makes for x (B, T, H, P), state size N
-    and chunk L (either dtype: the kernels compute in float32 from shared
-    memory).  Mirrors ``ssd_scan_bwd_smem`` of the source.  Plain Python:
-    the tests call it without a card."""
+    and chunk L in ``dtype``: ``local`` over (H + 1) x T/L CTAs per row,
+    ``pass`` one thread per 4 state elements (per element where P N is not a
+    multiple of 4), ``head`` over H x T/L, ``cross`` over 2 ceil(N/64) x T/L;
+    bfloat16 on the tensor cores, float32 on the FP32 pipes.  Mirrors the
+    source's grids and ``ssd_scan_bwd_smem``.  Plain Python: the tests call
+    it without a card."""
     if not 0 < L <= MAX_CHUNK:
         raise ValueError(f"chunk {L} outside (0, {MAX_CHUNK}]")
     if not 0 < N <= MAX_STATE:
         raise ValueError(f"state size N={N} outside (0, {MAX_STATE}]")
     if H > 65535 or B > 65535:
-        raise ValueError(f"heads {H} and rows {B} must each be <= 65535 (the grid's y and z)")
+        raise ValueError(f"heads {H} and rows {B} must each be <= 65535")
     if T % L:
         raise ValueError(f"T={T} must divide by chunk={L}")
-    nc = T // L
-    floats = {
-        "gram": 2 * L * (_NT + 1),
-        "dstate": P_BLOCK * (N + 1) + L * P_BLOCK + L * L + 2 * L * (_NT + 1) + 3 * L,
-        "dgram": L * L + 2 * L * (_PT + 1) + L + 2 * 16 * L,
-        "dbc": (L * L + 2 * L * (_NT3 + 1) + 2 * L * (_PT + 1) + 2 * _PT * (_NT3 + 1) + 4 * L
-                + 2 * 16 * L + BWD_THREADS),
-    }
-    grids = {"gram": (nc, B, 1), "dstate": (-(-P // P_BLOCK), H, B), "dgram": (nc, B, 1),
-             "dbc": (nc, B, 1)}
+    if dtype not in _CODES:
+        raise TypeError(f"no ssd_scan_bwd route for {dtype}")
+    route = "mma" if dtype == torch.bfloat16 else "fma"
+    nc, lp = T // L, _r16(L)
+    per = 4 if P * N % 4 == 0 else 1
+    grids = {"local": ((H + 1) * nc, B, 1),
+             "pass": (-(-(H * P * N // per) // BWD_THREADS), B, 1),
+             "head": (H * nc, B, 1),
+             "cross": (2 * -(-N // _NG) * nc, B, 1)}
     states = 4 * B * nc * H * P * N
-    return SsdBwdPlan(grids, {k: 4 * v for k, v in floats.items()},
-                      4 * B * nc * L * L + states, states)
+    return SsdBwdPlan(grids, _bwd_smem(L, N, route), route,
+                      states + 4 * B * nc * lp * lp + 4 * B * nc * H * _tab_floats(lp), states)
 
 
 def _check(x, loga, Bmat, C, chunk) -> None:
@@ -317,9 +357,9 @@ def ssd_scan_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The scan's gradient: (dx, dloga, dB, dC), dx/dB/dC in the inputs'
     dtype and dloga in float32.  For CUDA tensors one ``ssd_scan_bwd.cu``
-    call (four launches on the current stream) over the forward's saved
-    per-chunk ``states``; for CPU tensors the plain version (autograd
-    through ``ssd_chunked_ref``; ``states`` unused)."""
+    call (four launches on the current stream, :func:`backward_plan`) over
+    the forward's saved per-chunk ``states``; for CPU tensors the plain
+    version (autograd through ``ssd_chunked_ref``; ``states`` unused)."""
     _check(x, loga, Bmat, C, chunk)
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not match x "
@@ -334,7 +374,7 @@ def ssd_scan_bwd(
                          f"{None if states is None else (tuple(states.shape), states.dtype)}")
     if dstate is not None and (dstate.shape != (Bb, H, P, N) or dstate.device != x.device):
         raise ValueError(f"dstate {tuple(dstate.shape)} does not match {(Bb, H, P, N)}")
-    plan = backward_plan(Bb, T, H, P, N, chunk)
+    plan = backward_plan(Bb, T, H, P, N, chunk, x.dtype)
     if max(plan.smem.values()) > MAX_SMEM:
         raise ValueError(f"the backward needs {plan.smem} B of shared memory > {MAX_SMEM}")
     dy = dy.to(x.dtype).contiguous()
@@ -344,15 +384,17 @@ def ssd_scan_bwd(
     dx = torch.empty_like(x)
     dB, dC = torch.empty_like(Bmat), torch.empty_like(C)
     dloga = torch.empty_like(loga)
-    gram = torch.empty((Bb, nc, chunk, chunk), dtype=torch.float32, device=x.device)
+    lp = _r16(chunk)
+    gram = torch.empty((Bb, nc, lp, lp), dtype=torch.float32, device=x.device)
     dstates = torch.empty_like(states)
+    tabs = torch.empty((Bb, nc, H, _tab_floats(lp)), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _bwd_kernel()(_CODES[x.dtype], x.data_ptr(), loga.data_ptr(), Bmat.data_ptr(),
                            C.data_ptr(), states.data_ptr(), dy.data_ptr(),
                            None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
                            dloga.data_ptr(), dB.data_ptr(), dC.data_ptr(), gram.data_ptr(),
-                           dstates.data_ptr(), Bb, T, H, P, N, chunk, stream)
+                           dstates.data_ptr(), tabs.data_ptr(), Bb, T, H, P, N, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed for x {tuple(x.shape)} "
                            f"{x.dtype}, N {N}, chunk {chunk}: cudaError_t {rc}")

@@ -22,7 +22,7 @@ import dataclasses
 import itertools
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro import cfa as jcfa
 from repro.core.cfa import analysis as jan

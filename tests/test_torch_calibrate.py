@@ -23,7 +23,7 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.core.cfa  # noqa: F401  (the package; its submodules are read from sys.modules)
 import repro_torch.core.cfa  # noqa: F401

@@ -18,7 +18,7 @@ import json
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp

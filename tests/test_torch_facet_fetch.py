@@ -29,7 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax  # noqa: F401  (both frameworks in one process)
 import jax.numpy as jnp

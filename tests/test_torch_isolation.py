@@ -13,7 +13,7 @@ from pathlib import Path
 
 import numpy as np  # noqa: F401  (the test files' shared import set)
 import pytest
-import torch  # noqa: F401
+torch = pytest.importorskip("torch")
 
 import jax  # noqa: F401
 

@@ -15,9 +15,14 @@ does and clips by the whole stack's RMS.  ``cosine_warmup``,
 error-feedback property (``tests/test_distributed.py``'s case); and the
 reference's ``tests/test_train.py`` optimizer cases are mirrored.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp
@@ -58,10 +63,12 @@ def _grads(seed: int, leaves):
     return [rng.normal(size=leaf.shape).astype(np.float32) for leaf in leaves]
 
 
-@pytest.mark.parametrize("arch,name", [("jamba-1.5-large-398b", "adamw"),
-                                       ("jamba-1.5-large-398b", "adafactor"),
-                                       ("mamba2-370m", "adafactor")])
-def test_three_optimizer_steps_match_the_reference(arch, name):
+def _three_steps(arch: str, name: str) -> None:
+    """Three steps of both optimizers on the same seeded tree and gradients;
+    raises unless parameters and moments agree within TOL.  Each framework
+    gets its own copy of every gradient, and every reference step is waited
+    for before the port's step runs: no host memory is shared with an
+    asynchronous JAX computation."""
     params, model = _tree(arch)
     leaves = param_leaves(model)
     flat, tdef = jax.tree.flatten(params)
@@ -73,9 +80,10 @@ def test_three_optimizer_steps_match_the_reference(arch, name):
     for step in range(3):
         g = _grads(100 + step, leaves)
         lr = 1e-2 * (step + 1)
-        jp, js = j_update(jax.tree.unflatten(tdef, [jnp.asarray(a) for a in g]), js, jp,
+        jp, js = j_update(jax.tree.unflatten(tdef, [jnp.array(a, copy=True) for a in g]), js, jp,
                           jnp.float32(lr))
-        ts = t_update([torch.from_numpy(a) for a in g], ts, leaves, torch.tensor(lr))
+        jax.block_until_ready((jp, js))
+        ts = t_update([torch.tensor(a) for a in g], ts, leaves, torch.tensor(lr))
     for a, b in zip(jax.tree.leaves(lm_to_numpy(model)), jax.tree.leaves(jp)):
         np.testing.assert_allclose(a, np.asarray(b), **TOL)
     want = jax.tree.leaves(js)
@@ -84,6 +92,44 @@ def test_three_optimizer_steps_match_the_reference(arch, name):
     for a, b in zip(got, want):
         assert tuple(a.shape) == tuple(b.shape)
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+#: the comparison in a fresh interpreter, set up as the test run is
+#: (float64 enabled in JAX as tests/conftest.py does; denormals flushed as
+#: the autouse fixture does)
+_CHILD = """
+import sys
+import jax
+import torch
+jax.config.update("jax_enable_x64", True)
+torch.set_flush_denormal(True)
+sys.path.insert(0, {tests!r})
+import test_torch_optim
+test_torch_optim._three_steps({arch!r}, {name!r})
+print("OPTIM_OK")
+"""
+
+
+@pytest.mark.parametrize("arch,name", [("jamba-1.5-large-398b", "adamw"),
+                                       ("jamba-1.5-large-398b", "adafactor"),
+                                       ("mamba2-370m", "adafactor")])
+def test_three_optimizer_steps_match_the_reference(arch, name):
+    """Run in a fresh interpreter: in one whole-suite run (``-n 6 --dist
+    loadfile``) the jamba AdamW case once differed from the reference by up
+    to 3.0e-6 on 4.8 % of the ``embed/head`` leaf, which no later whole-suite
+    run, no run after any one of the reference's test files and no run at
+    1 or 6 torch threads reproduced; a fresh process keeps the comparison
+    free of what a worker's earlier tests leave behind (thread pools and
+    their floating-point state, JAX's dispatch queue)."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    res = subprocess.run(
+        [sys.executable, "-c", _CHILD.format(tests=str(root / "tests"), arch=arch, name=name)],
+        capture_output=True, text=True, timeout=900, env=env)
+    assert res.returncode == 0 and "OPTIM_OK" in res.stdout, \
+        (res.stdout[-4000:], res.stderr[-4000:])
 
 
 @pytest.mark.parametrize("step", [0, 1, 9, 10, 11, 55, 100, 250])

@@ -25,7 +25,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp

@@ -34,14 +34,19 @@ and handed to both packages:
   ``_ssd_chunked`` with seeded cotangents for y and the final state, at the
   test shapes and through the model's padding path (T not a multiple of the
   chunk), float32, within 1e-5 max|want| + 1e-7;
-* the backward kernel's four launches (``csrc/ssd_scan_bwd.cu``: G, the
-  reverse walk carrying dS, dG with each head's intra-chunk dl, the dB/dC
-  and dl terms and the reverse cumsum) transliterated to PyTorch in float64,
-  against the plain backward (``ssd_chunked_bwd_ref``) within 1e-5
-  max|want|; ``_SsdScan`` (the autograd function CUDA tensors go through)
-  with its two launches replaced by plain stand-ins, against autograd;
-  ``backward_plan`` at every card shape (shared memory within a block's
-  232448 B) and the backward's C entry point's arity.
+* the backward kernel's four launches (``csrc/ssd_scan_bwd.cu``: the
+  chunk-local U of every chunk into the dS_next scratch, the in-place
+  state-passing pass, dx and dloga per head and chunk, dB and dC summed over
+  the heads in order) transliterated to PyTorch in float64, against the
+  plain backward (``ssd_chunked_bwd_ref``) within 1e-5 max|want|; the same
+  transliteration with the bf16 route's operands (each float32 operand as
+  hi/lo bf16 halves) within the card's limits at the training shape's chunk
+  and state size, and one bf16 rounding of an operand beyond them;
+  ``_SsdScan`` (the autograd function CUDA tensors go through) with its two
+  launches replaced by plain stand-ins, against autograd; ``backward_plan``
+  at every card shape (grids, scratch, shared memory within a block's
+  232448 B; at the training shape every launch >= 132 CTAs) and the
+  backward's C entry point's arity.
 """
 import ast
 import re
@@ -49,7 +54,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax  # noqa: F401  (both frameworks in one process)
 import jax.numpy as jnp
@@ -439,65 +444,76 @@ def test_gradient_matches_the_reference_models_ssd(B, T, H, P, N, chunk):
         _grad_close(g, w)
 
 
-def _bwd_launches(x, loga, Bm, C, dy, dstate, L):
-    """The four launches of ``ssd_scan_bwd.cu``, in float64: (1) G = C B^T
-    per chunk; (2) per (row, head), chunks in reverse: dS_next out, dx = the
-    intra term W^T dy plus exp(l_L - l_s) dS_next B_s, then dS <- exp(l_L) dS
-    + sum_t exp(l_t) dy_t (outer) C_t; (3) per chunk, over the heads: E =
-    [s<=t] exp(l_t - l_s) dy_t.x_s, dG = sum_h E, dl = row sums - column sums
-    of G o E; (4) per chunk: R = exp(l_t) dy S_prev, U = exp(l_L - l_s) x
-    dS_next, their dl terms (and the last step's), dC = dG B + sum_h R, dB =
-    dG^T C + sum_h U, dloga = the reverse cumsum of dl."""
+def _bwd_launches(x, loga, Bm, C, dy, dstate, L, rnd=None):
+    """The four launches of ``ssd_scan_bwd.cu``, in float64.  (1) ``local``:
+    per (row, chunk, head) U_c = (exp(l) o dy)^T C into slot c - 1 of the
+    dS_next scratch, the final state's gradient (or 0) into slot nc - 1, the
+    chunk's decay exp(l_L); G^T = B C^T per chunk; (2) ``pass``: slot c <-
+    decay_{c+1} slot c+1 + slot c, from the last chunk to the first, in
+    place; (3) ``head``, per (row, chunk, head): Y = C S_prev^T, Z = B
+    dS_next^T, dx = W^T dy + exp(l_L - l_s) Z, A^T = W^T o (x dy^T), dl =
+    column sums - row sums of A^T + exp(l_t) dy . Y - exp(l_L - l_t) x . Z,
+    the last step's terms, and dloga its reverse cumsum; (4) ``cross``, per
+    (row, chunk), over the heads in order: dG += [s<=t] exp(l_t - l_s) dy_t .
+    x_s, dC += exp(l_t) dy S_prev, dB += exp(l_L - l_s) x dS_next; then dC +=
+    dG B and dB += dG^T C.  ``rnd(name, v)``, where given, is what the
+    tensor cores see of each float32 operand (``"ady"``: exp(l) o dy, ``"W"``,
+    ``"S"``: S_prev, ``"dS"``: dS_next, ``"dG"``); the other operand of each
+    product (x, dy, B or C) goes in as it is."""
     x, loga, Bm, C, dy = (torch.as_tensor(a).double() for a in (x, loga, Bm, C, dy))
+    op = rnd or (lambda name, v: v)
     Bb, T, H, P = x.shape
     N, nc = Bm.shape[-1], T // L
+    xc, dyc = x.reshape(Bb, nc, L, H, P), dy.reshape(Bb, nc, L, H, P)
+    Bc, Cc = Bm.reshape(Bb, nc, L, N), C.reshape(Bb, nc, L, N)
+    lc = torch.cumsum(loga.reshape(Bb, nc, L, H), 2)
+    ltot = lc[:, :, -1]  # (B, nc, H)
+    el, wout = torch.exp(lc), torch.exp(ltot[:, :, None] - lc)  # (B, nc, L, H)
     states = torch.zeros(Bb, nc, H, P, N, dtype=torch.float64)  # the forward's saved states
     S = torch.zeros(Bb, H, P, N, dtype=torch.float64)
     for c in range(nc):
         states[:, c] = S
-        sl = slice(c * L, (c + 1) * L)
-        lc = torch.cumsum(loga[:, sl], 1)
-        S = torch.exp(lc[:, -1])[..., None, None] * S + torch.einsum(
-            "blhp,bln->bhpn", x[:, sl] * torch.exp(lc[:, -1:] - lc)[..., None], Bm[:, sl])
-    G = torch.stack([torch.einsum("btn,bsn->bts", C[:, c * L:(c + 1) * L],
-                                  Bm[:, c * L:(c + 1) * L]) for c in range(nc)], 1)
-    mask = torch.tril(torch.ones(L, L, dtype=torch.bool))[None, :, :, None]
-    dx, dstates = torch.zeros_like(x), torch.zeros_like(states)
-    dS = (torch.zeros(Bb, H, P, N, dtype=torch.float64) if dstate is None
-          else torch.as_tensor(dstate).double())
-    for c in reversed(range(nc)):
-        sl = slice(c * L, (c + 1) * L)
-        lc = torch.cumsum(loga[:, sl], 1)
-        W = torch.where(mask, torch.exp(lc[:, :, None] - lc[:, None]) * G[:, c][..., None], 0.0)
-        dstates[:, c] = dS
-        dx[:, sl] = torch.einsum("btsh,bthp->bshp", W, dy[:, sl]) + torch.exp(
-            lc[:, -1:] - lc)[..., None] * torch.einsum("bhpn,bsn->bshp", dS, Bm[:, sl])
-        dS = torch.exp(lc[:, -1])[..., None, None] * dS + torch.einsum(
-            "bth,bthp,btn->bhpn", torch.exp(lc), dy[:, sl], C[:, sl])
-    dl, dG = torch.zeros_like(loga), torch.zeros_like(G)
-    for c in range(nc):
-        sl = slice(c * L, (c + 1) * L)
-        lc = torch.cumsum(loga[:, sl], 1)
-        E = torch.where(mask, torch.exp(lc[:, :, None] - lc[:, None])
-                        * torch.einsum("bthp,bshp->btsh", dy[:, sl], x[:, sl]), 0.0)
-        dG[:, c] = E.sum(-1)
-        A = G[:, c][..., None] * E
-        dl[:, sl] = A.sum(2) - A.sum(1)
-    dB, dC = torch.zeros_like(Bm), torch.zeros_like(C)
-    for c in range(nc):
-        sl = slice(c * L, (c + 1) * L)
-        lc = torch.cumsum(loga[:, sl], 1)
-        R = torch.exp(lc)[..., None] * torch.einsum("bthp,bhpn->bthn", dy[:, sl], states[:, c])
-        U = torch.exp(lc[:, -1:] - lc)[..., None] * torch.einsum("bthp,bhpn->bthn", x[:, sl],
-                                                                  dstates[:, c])
-        rowb = torch.einsum("btn,bthn->bth", Bm[:, sl], U)
-        blk = dl[:, sl] + torch.einsum("btn,bthn->bth", C[:, sl], R) - rowb
-        blk[:, -1] += torch.exp(lc[:, -1]) * (dstates[:, c] * states[:, c]).sum((-1, -2)) \
-            + rowb.sum(1)
-        dl[:, sl] = torch.flip(torch.cumsum(torch.flip(blk, [1]), 1), [1])
-        dC[:, sl] = torch.einsum("bts,bsn->btn", dG[:, c], Bm[:, sl]) + R.sum(2)
-        dB[:, sl] = torch.einsum("bts,btn->bsn", dG[:, c], C[:, sl]) + U.sum(2)
-    return dx, dl, dB, dC
+        S = torch.exp(ltot[:, c])[..., None, None] * S + torch.einsum(
+            "blhp,bln->bhpn", xc[:, c] * wout[:, c, ..., None], Bc[:, c])
+    # 1. local
+    U = torch.einsum("bclhp,bcln->bchpn", op("ady", el[..., None] * dyc), Cc)
+    dstates = torch.zeros_like(states)
+    dstates[:, :-1] = U[:, 1:]
+    if dstate is not None:
+        dstates[:, -1] = torch.as_tensor(dstate).double()
+    decay = torch.exp(ltot)
+    GT = torch.einsum("bcsn,bctn->bcst", Bc, Cc)
+    # 2. pass
+    for c in range(nc - 2, -1, -1):
+        dstates[:, c] = decay[:, c + 1][..., None, None] * dstates[:, c + 1] + dstates[:, c]
+    # 3. head: [b, c, s, t, h] with t >= s
+    ts = torch.arange(L)[None, :] >= torch.arange(L)[:, None]
+    ldiff = lc[:, :, None, :, :] - lc[:, :, :, None, :]
+    dec = torch.where(ts[..., None], torch.exp(torch.where(ts[..., None], ldiff, 0.0)), 0.0)
+    WT = GT[..., None] * dec
+    Y = torch.einsum("bctn,bchpn->bcthp", Cc, op("S", states))
+    Z = torch.einsum("bcsn,bchpn->bcshp", Bc, op("dS", dstates))
+    dx = torch.einsum("bcsth,bcthp->bcshp", op("W", WT), dyc) + wout[..., None] * Z
+    AT = WT * torch.einsum("bcshp,bcthp->bcsth", xc, dyc)
+    xz = (xc * Z).sum(-1)
+    dl = AT.sum(2) - AT.sum(3) + el * (dyc * Y).sum(-1) - wout * xz
+    dl[:, :, -1] += decay * (dstates * states).sum((-1, -2)) + (wout * xz).sum(2)
+    dloga = torch.flip(torch.cumsum(torch.flip(dl, [2]), 2), [2])
+    # 4. cross: the sums over heads, in head order
+    dG = torch.zeros(Bb, nc, L, L, dtype=torch.float64)
+    dCi, dBi = torch.zeros_like(Cc), torch.zeros_like(Bc)
+    for h in range(H):
+        E = dec[..., h].transpose(-1, -2) * torch.einsum("bctp,bcsp->bcts", dyc[..., h, :],
+                                                         xc[..., h, :])
+        dG += E
+        dCi += el[..., h, None] * torch.einsum("bctp,bcpn->bctn", dyc[..., h, :],
+                                               op("S", states[:, :, h]))
+        dBi += wout[..., h, None] * torch.einsum("bcsp,bcpn->bcsn", xc[..., h, :],
+                                                 op("dS", dstates[:, :, h]))
+    dC = torch.einsum("bcts,bcsn->bctn", op("dG", dG), Bc) + dCi
+    dB = torch.einsum("bcts,bctn->bcsn", op("dG", dG), Cc) + dBi
+    return (dx.reshape(Bb, T, H, P), dloga.reshape(Bb, T, H), dB.reshape(Bb, T, N),
+            dC.reshape(Bb, T, N))
 
 
 @pytest.mark.parametrize("with_dstate", [False, True])
@@ -566,18 +582,31 @@ BWD_SHAPES = [(2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32), (2, 96, 8, 8, 4, 3
               (1, 1024, 32, 64, 128, 128), (4, 1024, 32, 64, 128, 128),
               (1, 256, 2, 64, 256, 128), (1, 64, 8, 16, 16, 8), (1, 77, 32, 64, 128, 77),
               (8, 4096, 32, 64, 128, 128)]
+#: the H100's SMs; shared memory an SM holds (1 KiB of it reserved per CTA)
+SMS, SM_SMEM = 132, 233472
 
 
 @pytest.mark.parametrize("B,T,H,P,N,L", BWD_SHAPES)
 def test_backward_plan_fits_shared_memory_at_every_card_shape(B, T, H, P, N, L):
-    plan = ssd_mod.backward_plan(B, T, H, P, N, L)
-    assert max(plan.smem.values()) <= ssd_mod.MAX_SMEM
-    assert plan.grids["dstate"] == (-(-P // ssd_mod.P_BLOCK), H, B)
-    assert plan.grids["gram"] == plan.grids["dgram"] == plan.grids["dbc"] == (T // L, B, 1)
-    assert plan.saved == 4 * B * T // L * H * P * N
-    assert plan.scratch == plan.saved + 4 * B * T // L * L * L
-    if (B, T) == (8, 4096):  # the saved states of one layer at the training shape
+    nc, lp = T // L, -(-L // 16) * 16
+    for dtype, route in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        plan = ssd_mod.backward_plan(B, T, H, P, N, L, dtype)
+        assert plan.route == route and tuple(plan.grids) == ssd_mod.BWD_LAUNCHES
+        assert max(plan.smem.values()) <= ssd_mod.MAX_SMEM and plan.smem["pass"] == 0
+        assert plan.grids["local"] == ((H + 1) * nc, B, 1)
+        assert plan.grids["head"] == (H * nc, B, 1)
+        assert plan.grids["cross"] == (2 * -(-N // 64) * nc, B, 1)
+        per = 4 if P * N % 4 == 0 else 1
+        assert plan.grids["pass"] == (-(-(H * P * N // per) // ssd_mod.BWD_THREADS), B, 1)
+        assert plan.saved == 4 * B * nc * H * P * N
+        assert plan.scratch == plan.saved + 4 * B * nc * lp * lp + 4 * B * nc * H * (5 * lp + 64)
+    if (B, T) == (8, 4096):  # mamba2-370m's training shape
+        plan = ssd_mod.backward_plan(B, T, H, P, N, L)
         assert plan.saved == 8 * 32 * 32 * 64 * 128 * 4 == 268435456
+        # every launch has at least one CTA per SM of the card
+        assert min(plan.ctas.values()) >= SMS, plan.ctas
+        # two CTAs of the head and cross launches share an SM
+        assert all(2 * (plan.smem[k] + 1024) <= SM_SMEM for k in ("head", "cross")), plan.smem
 
 
 def test_backward_plan_rejects_what_the_kernels_reject():
@@ -587,6 +616,8 @@ def test_backward_plan_rejects_what_the_kernels_reject():
         ssd_mod.backward_plan(1, 128, 2, 16, 257, 128)
     with pytest.raises(ValueError, match="must divide"):
         ssd_mod.backward_plan(1, 100, 2, 16, 16, 64)
+    with pytest.raises(TypeError, match="no ssd_scan_bwd route"):
+        ssd_mod.backward_plan(1, 128, 2, 16, 16, 128, torch.float16)
 
 
 def test_the_backward_c_entry_point_matches_its_ctypes_binding():
@@ -598,7 +629,52 @@ def test_the_backward_c_entry_point_matches_its_ctypes_binding():
               if isinstance(node, ast.FunctionDef) and node.name == "_bwd_kernel")
     argtypes = next(node.value for node in ast.walk(fn) if isinstance(node, ast.Assign)
                     and any(getattr(t, "attr", None) == "argtypes" for t in node.targets))
-    assert len(argtypes.elts) == n_params == 21
+    assert len(argtypes.elts) == n_params == 22
+
+
+def _bf16_round(v: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 -> bf16 (round to nearest even) -> float64."""
+    return v.float().bfloat16().double()
+
+
+def _hi_lo(v: torch.Tensor) -> torch.Tensor:
+    """What two MMAs see of an f32 value split into bf16 halves: hi + lo."""
+    hi = _bf16_round(v)
+    return hi + _bf16_round(v.float().double() - hi)
+
+
+def _bwd_excess(got, want) -> list[float]:
+    """chip_smoke.py's limits: dx, dB and dC (bf16, rounded once) within one
+    output rounding, 2^-7 |want| + 1e-3; dloga within 1e-4 max|want| + 1e-6."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.double()
+        if i == 1:
+            out.append(float(((g - w).abs() / (1e-4 * w.abs().max() + 1e-6)).max()))
+        else:
+            out.append(_excess(_bf16(g.numpy()), w.numpy(), *Y_BF16_TOL))
+    return out
+
+
+@pytest.mark.parametrize("operand", ["dS", "S", "ady", "dG"])
+def test_one_bf16_rounding_of_an_f32_operand_breaks_the_backward_limit_and_the_split_meets_it(
+        operand):
+    """The bf16 route at the training shape's chunk and state size (L 128, N
+    128), in float64: each float32 operand of the tensor cores as hi/lo
+    halves (the kernels) meets the card's limits against the plain backward;
+    one bf16 rounding of dS_next, S_prev, exp(l) o dy or dG breaks them."""
+    B, T, H, P, N, L = 1, 256, 2, 16, 128, 128
+    x, loga, Bm, C = _bf16_inputs(47, B, T, H, P, N, 0.5)
+    dy = _bf16(_cotangents(48, B, T, H, P, N)[0])
+    want = ssd_chunked_bwd_ref(*_torch(x, loga, Bm, C, torch.bfloat16),
+                               torch.from_numpy(dy).bfloat16(), None, L)
+    split = _bwd_excess(_bwd_launches(x, loga, Bm, C, dy, None, L, rnd=lambda n, v: _hi_lo(v)),
+                        want)
+    once = _bwd_excess(_bwd_launches(
+        x, loga, Bm, C, dy, None, L,
+        rnd=lambda n, v: _bf16_round(v) if n == operand else _hi_lo(v)), want)
+    assert max(split) <= 1.0 and split[1] <= 0.1, split
+    assert max(once) > 1.5, once
 
 
 @pytest.mark.cuda
