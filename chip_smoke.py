@@ -243,6 +243,22 @@ result line unless every phase passed):
                vs CPU gradients on a full-width 2-layer cut (batch 1, seq
                512, float32 compute, weights copied): every leaf within
                1e-3 max|g_cpu| + 1e-6, the loss within 1e-4 relative;
+    train-mesh — slice 11: the training path on a world-1 ``DeviceMesh``
+               (an ``nccl`` group in this process over a ``FileStore``
+               under ``build/``): ``Trainer(mesh=mesh_for_devices())`` on
+               mamba2-370m at ``[train]``'s batch x 4096 for 2 steps
+               (parameters and moments DTensors, each weight gathered where
+               a layer reads it, gradients reduce-scattered), then an
+               unmeshed ``Trainer`` for 2 steps: losses, grad norms,
+               parameters and moments bit-equal; ``ssd_scan`` 48 x 2 x 2
+               and ``ssd_scan_bwd`` 48 x 2 launches in the meshed run; the
+               meshed checkpoint restored with ``shardings=`` bit-equal;
+               one profiled meshed step (device busy share, the
+               collectives' device time and host calls); then ``python -m
+               torch.distributed.run --standalone --nproc-per-node 1 -m
+               repro_torch.launch.train`` as a child, whose losses must
+               equal the meshed run's; printed: both runs' step ms and
+               peak memory, beside the card's name and power limit;
     train timing — ``ssd_scan_bwd`` at the training shape and the serve
                shape (B 1, T 1024) in bfloat16 by graph replay, beside its
                plain version, the forward at the same shape, its bytes
@@ -256,7 +272,8 @@ The phases run in the order device, build, kernels, fetch, small, storage,
 attn-kernel, ssd-kernel, ssd-bwd-kernel, main, kernels-sharded, sharded,
 dataflow, irredundant, fetch-sharded, compressed, distribute,
 halo-quantize, calibrate, h100-target, serve, serve-ctx, jamba-smoke,
-train, timing (stencil, fetch, 1s/2s), serve timing, train timing; each
+train, train-mesh, timing (stencil, fetch, 1s/2s), serve timing, train
+timing; each
 model is freed before the next (olmoe holds 13.8 GB, the VLM 20.2 GB, the
 training run about 37 GiB at its peak): every profiler window that reads
 host calls and kernels together runs before the timing phases'
@@ -364,6 +381,8 @@ SSD_TRAIN_SHAPE = (8, 4096, 32, 64, 128, 128)
 #: the card-vs-CPU gradient check: a full-width cut, float32 compute
 TRAIN_CPU_LAYERS, TRAIN_CPU_SEQ = 2, 512
 TRAIN_GRAD_TOL = (1e-3, 1e-6)  # per leaf: 1e-3 max|g_cpu| + 1e-6; the loss within 1e-4
+#: steps of each [train-mesh] run (meshed, unmeshed, the torchrun launcher)
+TRAIN_MESH_STEPS = 2
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "olmoe-1b-7b")
 SERVE_LANES, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_MAX_NEW = 8, 2048, 16, 64
 SERVE_PROMPTS = (64, 1024)  # prompt lengths, seeded uniform, inclusive
@@ -2483,13 +2502,18 @@ def _losses(log: list[dict]) -> dict[int, float]:
     return {m["step"]: m["loss"] for m in log}
 
 
-def _profile_step(trainer, batch: dict) -> dict | None:
-    """Wall and device-busy seconds of one train step (kernel rows only)."""
+def _profile_step(trainer, batch: dict, tag: str = "[train]") -> dict | None:
+    """Wall and device-busy seconds of one train step (kernel rows only),
+    under the trainer's mesh; the collectives' rows (NCCL kernels and
+    device-to-device copies) summed apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.distributed.sharding import use_mesh
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            use_mesh(getattr(trainer, "mesh", None)):
         t0 = time.perf_counter()
         trainer.step_fn(trainer.model, trainer.opt_state, batch)
         torch.cuda.synchronize()
@@ -2498,11 +2522,11 @@ def _profile_step(trainer, batch: dict) -> dict | None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     if not rows:
-        log(f"[train] profiler saw no kernel time over one step ({wall:.3f} s wall): device "
+        log(f"{tag} profiler saw no kernel time over one step ({wall:.3f} s wall): device "
             f"busy share not measured")
         return None
     busy = sum(r[1] for r in rows) / 1e6
-    log(f"[train] profiler over one step: wall {wall * 1e3:.3f} ms, kernels "
+    log(f"{tag} profiler over one step: wall {wall * 1e3:.3f} ms, kernels "
         f"{sum(r[2] for r in rows)} launches, device busy {busy * 1e3:.3f} ms ({busy / wall:.1%};"
         f" idle {1 - busy / wall:.1%}); top kernels by device time: "
         + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms ({t / 1e6 / busy:.1%}) x{c}"
@@ -2510,10 +2534,20 @@ def _profile_step(trainer, batch: dict) -> dict | None:
     bwd = [(_kernel_name(k), t, c) for k, t, c in rows
            if _kernel_name(k).startswith(SSD_BWD_KERNELS)]
     bwd_s = sum(t for _, t, _ in bwd) / 1e6
-    log(f"[train] ssd_scan_bwd over the step: {bwd_s * 1e3:.3f} ms of device time "
+    log(f"{tag} ssd_scan_bwd over the step: {bwd_s * 1e3:.3f} ms of device time "
         f"({bwd_s / busy:.1%} of the busy time): "
         + ", ".join(f"{k} {t / 1e3:.3f} ms x{c}" for k, t, c in bwd))
-    return {"wall_s": wall, "busy_s": busy}
+    comm = [(k, t, c) for k, t, c in rows if "nccl" in k.lower() or "dtod" in k.lower()]
+    comm_s = sum(t for _, t, _ in comm) / 1e6
+    calls = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CPU
+             and any(w in e.key.lower() for w in ("all_gather", "reduce_scatter", "all_reduce",
+                                                  "allgather", "allreduce"))}
+    log(f"{tag} collectives and device copies over the step: {comm_s * 1e3:.3f} ms of device "
+        f"time ({comm_s / busy:.2%} of the busy time) in {sum(c for _, _, c in comm)} launches"
+        + ("" if not comm else ": " + "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{c}"
+                                                for k, t, c in comm[:6]))
+        + f"; host-side collective calls: {calls}")
+    return {"wall_s": wall, "busy_s": busy, "comm_s": comm_s, "calls": calls}
 
 
 def _train_grads_cpu_check(device) -> dict:
@@ -2691,6 +2725,126 @@ def phase_train(device) -> dict:
     return {"batch": batch, "launches": launches, "step_ms": step_s * 1e3,
             "tokens_per_s": tokens / step_s, "peak_gib": peak / 2 ** 30, "mfu": mfu,
             "busy": None if prof is None else prof["busy_s"] / prof["wall_s"], **check}
+
+
+def phase_train_mesh(device, batch: int, smi: str) -> dict:
+    """Slice 11's path: the training path on a world-1 ``DeviceMesh`` (an
+    ``nccl`` group in this process over a ``FileStore`` under ``build/``).
+    ``Trainer(mesh=mesh_for_devices())`` — parameters and moments DTensors,
+    each layer's weights gathered where it reads them, the gradients
+    reduce-scattered — runs mamba2-370m at full width and depth at
+    ``[train]``'s batch x ``TRAIN_SEQ`` for ``TRAIN_MESH_STEPS`` steps, then an
+    unmeshed ``Trainer`` from the same seed; their losses, grad norms,
+    parameters and moments must be bit-equal, ``ssd_scan`` and
+    ``ssd_scan_bwd`` must launch inside the meshed steps (layers x 2 x steps,
+    layers x steps), and the meshed checkpoint restored with ``shardings=``
+    must equal the saved state bit for bit; then ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1 -m
+    repro_torch.launch.train`` in a child process must log the meshed run's
+    losses.  No fallback: a group that cannot start fails the phase."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import full_tensor, use_mesh
+    from repro_torch.kernels.ssd import ssd_scan, ssd_scan_bwd
+    from repro_torch.launch.mesh import mesh_for_devices
+    from repro_torch.train.loop import Trainer
+
+    cfg, hp, steps = _train_cfg(), _train_hp(TRAIN_MESH_STEPS), TRAIN_MESH_STEPS
+    n_mamba = sum(1 for _ in range(cfg.n_periods) for k in cfg.period if k == "mamba")
+    root = Path(tempfile.mkdtemp(prefix="train_mesh_", dir=ROOT / "build"))
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "store"), 1), rank=0,
+                            world_size=1, device_id=device)
+    try:
+        mesh = mesh_for_devices()
+        log(f"[train-mesh] {mesh} ({dist.get_backend()} group of {dist.get_world_size()}); "
+            f"{TRAIN_ARCH} at batch {batch} x seq {TRAIN_SEQ}, {steps} steps per run, AdamW, "
+            f"remat, seed {SEED}")
+        runs = {}
+        for name in ("meshed", "unmeshed"):
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            ssd_scan.launches = ssd_scan_bwd.launches = 0
+            trainer = Trainer(cfg, batch=batch, seq=TRAIN_SEQ, ckpt_dir=root / name, hp=hp,
+                              mesh=mesh if name == "meshed" else None,
+                              ckpt_every=steps if name == "meshed" else 10 ** 9, device=device)
+            run_log = trainer.run(steps, log_every=1)
+            torch.cuda.synchronize()
+            run = {"log": run_log, "peak": torch.cuda.max_memory_allocated(),
+                   "launches": {"ssd_scan": ssd_scan.launches,
+                                "ssd_scan_bwd": ssd_scan_bwd.launches},
+                   "step_ms": statistics.median(m["dt"] for m in run_log[1:]) * 1e3,
+                   "state": [full_tensor(t).cpu() for t in trainer.state()]}
+            if name == "meshed":
+                placed = trainer.state()
+                with use_mesh(mesh):
+                    restored = trainer.ckpt.restore(steps, placed, shardings=trainer.shardings())
+                run["ckpt_equal"] = all(
+                    type(r) is type(t) and getattr(r, "placements", None) ==
+                    getattr(t, "placements", None) and bit_equal(full_tensor(r).cpu(), w)
+                    for r, t, w in zip(restored, placed, run["state"]))
+                del placed, restored
+                batch_t = {"tokens": torch.as_tensor(trainer.data.batch_at(steps)["tokens"],
+                                                     device=device)}
+                run["profile"] = _profile_step(trainer, batch_t, "[train-mesh]")
+            trainer.data.close()
+            runs[name] = run
+            del trainer
+        _free()
+        meshed, plain = runs["meshed"], runs["unmeshed"]
+        want = {"ssd_scan": n_mamba * 2 * steps, "ssd_scan_bwd": n_mamba * steps}
+        same = {k: [m[k] for m in meshed["log"]] == [m[k] for m in plain["log"]]
+                for k in ("loss", "grad_norm", "lr")}
+        same_state = all(bit_equal(a, b) for a, b in zip(meshed["state"], plain["state"]))
+        log(f"[train-mesh] meshed losses {_losses(meshed['log'])}, grad norms "
+            f"{[m['grad_norm'] for m in meshed['log']]}; unmeshed losses "
+            f"{_losses(plain['log'])}; bit-equal: {same}; every parameter and moment "
+            f"({len(plain['state'])} tensors) bit-equal: {same_state}")
+        log(f"[train-mesh] launches in the meshed run: ssd_scan {meshed['launches']['ssd_scan']} "
+            f"(want {n_mamba} x 2 x {steps} = {want['ssd_scan']}), ssd_scan_bwd "
+            f"{meshed['launches']['ssd_scan_bwd']} (want {n_mamba} x {steps} = "
+            f"{want['ssd_scan_bwd']}); the unmeshed run's {plain['launches']}")
+        log(f"[train-mesh] the meshed checkpoint of step {steps} restored with shardings= "
+            f"(DTensors on the mesh) == the state it saved, bit for bit: {meshed['ckpt_equal']}")
+        log(f"[train-mesh] step {steps} of {steps}: meshed {meshed['step_ms']:.3f} ms, unmeshed "
+            f"{plain['step_ms']:.3f} ms (ratio {meshed['step_ms'] / plain['step_ms']:.4f}); "
+            f"peak max_memory_allocated meshed {meshed['peak'] / 2 ** 30:.3f} GiB, unmeshed "
+            f"{plain['peak'] / 2 ** 30:.3f} GiB; card: {smi}")
+        if not (all(same.values()) and same_state):
+            raise AssertionError("the meshed and unmeshed runs differ")
+        if meshed["launches"] != want:
+            raise AssertionError(f"meshed launches {meshed['launches']} != {want}")
+        if not meshed["ckpt_equal"]:
+            raise AssertionError("the meshed checkpoint restored with shardings= differs")
+        # the launcher under torchrun, in a child process
+        metrics = root / "launcher.json"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+               "--steps", str(steps), "--batch", str(batch), "--seq", str(TRAIN_SEQ),
+               "--ckpt-dir", str(root / "launcher"), "--ckpt-every", str(10 ** 9),
+               "--log-every", "1", "--metrics-out", str(metrics)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"the torchrun launcher failed ({res.returncode}):\n"
+                                 f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        child = json.loads(metrics.read_text())
+        log(f"[train-mesh] python -m torch.distributed.run --standalone --nproc-per-node 1 -m "
+            f"repro_torch.launch.train {' '.join(cmd[8:])}: {wall:.1f} s; losses "
+            f"{_losses(child)}; output: {res.stdout.strip().splitlines()[-1]}")
+        if _losses(child) != _losses(meshed["log"]):
+            raise AssertionError(f"the launcher's losses {_losses(child)} != the meshed run's "
+                                 f"{_losses(meshed['log'])}")
+    finally:
+        dist.destroy_process_group()
+    prof = meshed["profile"]
+    return {"launches": meshed["launches"], "step_ms": meshed["step_ms"],
+            "plain_step_ms": plain["step_ms"], "peak_gib": meshed["peak"] / 2 ** 30,
+            "plain_peak_gib": plain["peak"] / 2 ** 30,
+            "comm_share": None if prof is None else prof["comm_s"] / prof["busy_s"]}
 
 
 def _ssd_bwd_bound(B: int, T: int, H: int, P: int, N: int, L: int,
@@ -3043,6 +3197,7 @@ def main() -> int:
     jamba_run = phase_jamba_smoke(device)
     _free()
     train_run = phase_train(device)
+    mesh_run = phase_train_mesh(device, train_run["batch"], smi)
     rows = phase_timing(device, main_run, irr_run)
     fetch_row = phase_fetch_timing(irr_run)
     sharded_rows = phase_sharded_timing(device, main_run, irr_run, fetch_row,
@@ -3125,7 +3280,9 @@ def main() -> int:
     launches = train_run["launches"]
     log(f"[done] launches over the training path ({TRAIN_ARCH}, batch {train_run['batch']}, "
         f"{2 * TRAIN_STEPS} steps through the launcher): ssd_scan {launches['ssd_scan']}, "
-        f"ssd_scan_bwd {launches['ssd_scan_bwd']}")
+        f"ssd_scan_bwd {launches['ssd_scan_bwd']}; over the meshed path ({TRAIN_MESH_STEPS} "
+        f"steps): ssd_scan {mesh_run['launches']['ssd_scan']}, ssd_scan_bwd "
+        f"{mesh_run['launches']['ssd_scan_bwd']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
-"""Port placement and halo compression for the multi-port path.
+"""Sharding rules, port placement and halo compression.
 
-The PyTorch counterpart of the parts of ``repro.distributed`` that the
-``sharded`` backend runs: :mod:`.sharding` (``PortMesh``, ``port_mesh``,
-``shard_facets``; on one card a port is a CUDA stream) and
-:mod:`.compression` (``quantize_int8``/``dequantize_int8``, the
-``halo_quantize`` hook).  Data-parallel and tensor-parallel sharding arrive
-with the distribution slice.
+The PyTorch counterpart of ``repro.distributed``: :mod:`.sharding` (the
+logical specs, the active mesh and their DTensor placements; ``PortMesh``,
+``port_mesh``, ``shard_facets``, where on one card a port is a CUDA stream)
+and :mod:`.compression` (``quantize_int8``/``dequantize_int8``, the
+``halo_quantize`` hook, and error-feedback gradient compression).  GPipe
+(``pipeline.py``) is not ported yet.
 """

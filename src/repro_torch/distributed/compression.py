@@ -33,7 +33,8 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def ef_init(params: list[torch.Tensor]) -> list[torch.Tensor]:
-    return [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+    """Zero residuals, float32, laid out as each leaf (DTensors too)."""
+    return [torch.zeros_like(p, dtype=torch.float32) for p in params]
 
 
 def ef_compress(grads: list[torch.Tensor], error_state: list[torch.Tensor]

@@ -116,12 +116,14 @@ def lm_to_numpy(model) -> dict:
     arrays (bfloat16 as float32, which holds it exactly): the inverse of
     :func:`lm_from_numpy`.  Periods (and encoder layers) are stacked on a
     leading axis and a norm becomes ``{"scale": s}``, as
-    ``repro_torch.models.lm.param_leaves`` groups them."""
+    ``repro_torch.models.lm.param_leaves`` groups them.  A sharded model's
+    leaves are gathered whole (every rank of its mesh must call this)."""
+    from repro_torch.distributed.sharding import full_tensor
     from repro_torch.models.lm import param_leaves
 
     out: dict = {}
     for leaf in param_leaves(model):
-        v = leaf.value().cpu()
+        v = full_tensor(leaf.value()).cpu()
         tree = out
         for key in leaf.path[:-1]:
             tree = tree.setdefault(key, {})

@@ -32,7 +32,9 @@ scratch and shared memory).  A call that needs no gradient (serving) launches th
 scan alone, as before.
 
 For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
-they launch the kernels or raise — they never fall back.
+they launch the kernels or raise — they never fall back.  A DTensor (which
+reports its local device) raises: a sharded model gathers its parameters
+where a layer reads them, so the kernels only ever see plain tensors.
 ``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count kernel launches
 (the plain paths do not count).
 """
@@ -245,7 +247,17 @@ def backward_plan(B: int, T: int, H: int, P: int, N: int, L: int,
                       states + 4 * B * nc * lp * lp + 4 * B * nc * H * _tab_floats(lp), states)
 
 
+def _plain(*ts) -> None:
+    """Raise on a DTensor among ``ts`` (None entries skipped)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("the SSD kernels take plain tensors, not DTensors: gather a sharded "
+                        "operand first")
+
+
 def _check(x, loga, Bmat, C, chunk) -> None:
+    _plain(x, loga, Bmat, C)
     if x.dim() != 4 or loga.dim() != 3 or Bmat.dim() != 3 or C.shape != Bmat.shape:
         raise ValueError(f"want x (B,T,H,P), loga (B,T,H), B/C (B,T,N), got "
                          f"{tuple(x.shape)}, {tuple(loga.shape)}, {tuple(Bmat.shape)}, "
@@ -361,6 +373,7 @@ def ssd_scan_bwd(
     the forward's saved per-chunk ``states``; for CPU tensors the plain
     version (autograd through ``ssd_chunked_ref``; ``states`` unused)."""
     _check(x, loga, Bmat, C, chunk)
+    _plain(dy, dstate, states)
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not match x "
                          f"{tuple(x.shape)} on {x.device}")

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.cfa.api import resolve_device
+from repro_torch.distributed.sharding import P
 
 from .config import ArchConfig
 from .layers import (
@@ -30,12 +31,16 @@ from .layers import (
     decode_cross_attention,
     mlp,
     rms_norm,
+    spec_attention,
+    spec_mlp,
+    spec_norm,
     torch_dtype,
 )
-from .mamba2 import Mamba2, MambaCache, mamba_decode, mamba_prefill, mamba_train
-from .moe import MoE, moe
+from .mamba2 import Mamba2, MambaCache, mamba_decode, mamba_prefill, mamba_train, spec_mamba
+from .moe import MoE, moe, spec_moe
 
-__all__ = ["Block", "ffn_kind", "init_position", "cache_position", "apply_position"]
+__all__ = ["Block", "ffn_kind", "init_position", "spec_position", "cache_position",
+           "apply_position"]
 
 _KINDS = ("attn", "mamba", "cross", "dec")
 
@@ -80,6 +85,25 @@ def init_position(kind: str, fk: str, cfg: ArchConfig, *, generator=None,
     ``generator``, or zeros to be loaded when it is None; matrices in
     ``dtype`` (default: the compute dtype)."""
     return Block(kind, fk, cfg, device=device, generator=generator, dtype=dtype)
+
+
+def spec_position(kind: str, fk: str, cfg: ArchConfig) -> dict:
+    """The reference's logical specs of one layer's weights, keyed as its
+    pytree (a norm is ``{"scale": ...}``)."""
+    s: dict = {"norm1": spec_norm()}
+    if kind == "mamba":
+        s["mixer"] = spec_mamba(cfg)
+    else:
+        s["mixer"] = spec_attention(cfg)
+    if kind == "cross":
+        s["gate"] = P()
+    if kind == "dec":
+        s["norm_x"] = spec_norm()
+        s["cross"] = spec_attention(cfg)
+    if fk != "none":
+        s["norm2"] = spec_norm()
+        s["ffn"] = spec_moe() if fk == "moe" else spec_mlp()
+    return s
 
 
 def cache_position(kind: str, cfg: ArchConfig, batch: int, seq: int,
@@ -171,7 +195,7 @@ def apply_position(
     if block.fk != "none":
         h2 = rms_norm(x, block.norm2)
         if block.fk == "moe":
-            y2, aux = moe(block.ffn, h2)
+            y2, aux = moe(block.ffn, h2, ctx.get("dp_groups", ()))
         else:
             y2 = mlp(block.ffn, h2)
         x = x + y2

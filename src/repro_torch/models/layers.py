@@ -5,7 +5,10 @@ of ``repro/models/layers.py``.
 Each layer is an ``nn.Module`` holding its weights (``Attention``, ``MLP``,
 ``Embedding``) plus a module-level function under the reference's name
 (``attention``, ``decode_attention_blocks``, ``decode_cross_attention``,
-``mlp``, ``embed``, ``unembed``), so each has a counterpart to find.
+``mlp``, ``embed``, ``unembed``), so each has a counterpart to find, and a
+``spec_*`` function with the reference's logical partition specs of its
+weights (``spec_norm``, ``spec_attention``, ``spec_mlp``,
+``spec_embedding``; ``repro_torch.distributed.sharding``).
 Weights used in matrix products are kept in ``dtype``: the configuration's
 compute dtype by default (serving: cast once at load time), or its
 ``param_dtype`` (training: float32 master weights).  Every use casts the
@@ -30,15 +33,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.cfa.api import resolve_device
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.block_attention import append_token, decode_attention
 
 from .config import ArchConfig
 
 __all__ = [
-    "rms_norm", "apply_rope", "silu",
-    "Attention", "attention", "decode_attention_blocks", "decode_cross_attention",
-    "MLP", "mlp",
-    "Embedding", "embed", "unembed",
+    "rms_norm", "spec_norm", "apply_rope", "silu",
+    "Attention", "spec_attention", "attention", "decode_attention_blocks",
+    "decode_cross_attention",
+    "MLP", "spec_mlp", "mlp",
+    "Embedding", "spec_embedding", "embed", "unembed",
     "KVCache",
 ]
 
@@ -54,6 +59,10 @@ def torch_dtype(name: "str | torch.dtype") -> torch.dtype:
 # ---------------------------------------------------------------------------
 # norms / rope
 # ---------------------------------------------------------------------------
+
+def spec_norm() -> dict:
+    return {"scale": P(None)}
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
@@ -163,6 +172,21 @@ class Attention(nn.Module):
         self.wk.copy_(wk.repeat_interleave(rep, dim=1).to(cd))
         self.wv.copy_(wv.repeat_interleave(rep, dim=1).to(cd))
         self.wo.copy_((wo * real[:, None, None]).to(cd))
+
+
+def spec_attention(cfg: ArchConfig) -> dict:
+    """The reference's logical specs: wq/wk/wv column-parallel over 'model'
+    (the head dim), wo row-parallel; the other weight dim FSDP over 'data'."""
+    s = {
+        "wq": P("data", "model", None),
+        "wk": P("data", "model", None),
+        "wv": P("data", "model", None),
+        "wo": P("model", None, "data"),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = spec_norm()
+        s["k_norm"] = spec_norm()
+    return s
 
 
 def _project_qkv(m: Attention, x, kv_x, q_positions, kv_positions):
@@ -355,6 +379,14 @@ class MLP(nn.Module):
                 self.w2.copy_(_normal((f, d), f ** -0.5, cd, generator, dev))
 
 
+def spec_mlp() -> dict:
+    return {
+        "w1": P("data", "model"),
+        "w3": P("data", "model"),
+        "w2": P("model", "data"),
+    }
+
+
 def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
     cd = _cd(m.cfg)
     xc = x.to(cd)
@@ -384,8 +416,15 @@ class Embedding(nn.Module):
                 self.head.copy_(_normal((d, vp), d ** -0.5, cd, generator, dev))
 
 
+def spec_embedding() -> dict:
+    # the table vocab-parallel only, as the reference (sharding d as well
+    # made its gather degenerate to full-batch all-gathers)
+    return {"table": P("model", None), "head": P(None, "model")}
+
+
 def embed(m: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return m.table.to(_cd(m.cfg))[tokens.to(m.table.device)]
+    table = m.table  # read once: a sharded model gathers it on each read
+    return table.to(_cd(m.cfg))[tokens.to(table.device)]
 
 
 def unembed(m: Embedding, x: torch.Tensor) -> torch.Tensor:

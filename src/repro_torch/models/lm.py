@@ -24,6 +24,21 @@ stub frontend's frame embeddings); a VLM attends to ``cross_src`` as given.
 
 Every entry point runs on the CUDA device unless the caller asks for the
 CPU (``device="cpu"``), where the kernels run their plain versions.
+
+``spec_lm``/``spec_encoder`` give the reference's logical partition specs,
+as its pytree (the stacked leaves' specs with their replicated leading
+axis).  :func:`shard_lm` stores a model's parameters as DTensors on a
+``torch.distributed`` mesh, each placed by the sanitized spec of its
+reference leaf (FSDP over ``data``, TP over ``model``): the persistent
+state per rank is the reference's.  Each parameter is read through a
+parametrization that gathers it to the full tensor where a layer reads it
+(again in a remat recompute, as FSDP does), and whose backward turns the
+full-size gradient of this rank's rows into the parameter's placements: a
+reduce-scatter over the mesh dimensions that split the batch, this rank's
+slice over the others.  Every rank of a model group therefore computes its
+rows' layers whole — the reference's numbers, without its tensor-parallel
+split of the activations — and the layers' code and kernels only ever see
+plain tensors.
 """
 from __future__ import annotations
 
@@ -33,17 +48,21 @@ import functools
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.utils import parametrize
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.cfa.api import resolve_device
+from repro_torch.distributed.sharding import P, named
 
-from .blocks import apply_position, cache_position, ffn_kind, init_position
+from .blocks import apply_position, cache_position, ffn_kind, init_position, spec_position
 from .config import ArchConfig
-from .layers import Embedding, _param, attention, embed, mlp, rms_norm, torch_dtype, unembed
+from .layers import (Embedding, _param, attention, embed, mlp, rms_norm, spec_embedding,
+                     spec_norm, torch_dtype, unembed)
 
-__all__ = ["LM", "Encoder", "ParamLeaf", "param_leaves", "init_lm", "init_caches", "encode",
-           "lm_forward", "lm_prefill", "lm_decode"]
+__all__ = ["LM", "Encoder", "ParamLeaf", "param_leaves", "init_lm", "spec_lm", "spec_encoder",
+           "Gather", "shard_lm", "init_caches", "encode", "lm_forward", "lm_prefill",
+           "lm_decode"]
 
 
 class Encoder(nn.Module):
@@ -79,10 +98,47 @@ class LM(nn.Module):
             self.encoder = Encoder(cfg, **kw)
         if dtype is not None:
             self.requires_grad_(True)
+        self.sharding = None  # a Gather once shard_lm has placed the parameters
 
     @property
     def device(self) -> torch.device:
-        return self.final_norm.device
+        """The device of this rank's parameters (read without a gather)."""
+        return next(self.parameters()).device
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+
+def _stack_specs(spec_tree):
+    """Prepend the period-stack dim (replicated) to every leaf spec."""
+    if isinstance(spec_tree, P):
+        return P(None, *spec_tree)
+    return {k: _stack_specs(v) for k, v in spec_tree.items()}
+
+
+def spec_lm(cfg: ArchConfig) -> dict:
+    """The reference's logical specs of ``init_lm``'s pytree."""
+    period_spec = {
+        f"pos{i}": spec_position(kind, ffn_kind(cfg, i), cfg)
+        for i, kind in enumerate(cfg.period)
+    }
+    s = {
+        "embed": spec_embedding(),
+        "periods": _stack_specs(period_spec),
+        "final_norm": spec_norm(),
+    }
+    if cfg.is_encdec:
+        s["encoder"] = spec_encoder(cfg)
+    return s
+
+
+def spec_encoder(cfg: ArchConfig) -> dict:
+    return {
+        "layers": _stack_specs(spec_position("attn", "mlp", cfg)),
+        "final_norm": spec_norm(),
+    }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +152,7 @@ class ParamLeaf:
     path: tuple
     parts: tuple
     stacked: bool
+    spec: P = P()  # the reference's logical spec of the leaf (spec_lm)
 
     @property
     def shape(self) -> tuple:
@@ -111,18 +168,12 @@ class ParamLeaf:
     @torch.no_grad()
     def take_grad(self) -> torch.Tensor:
         """The parts' gradients as one leaf (zeros where a part has none),
-        leaving the parts without one: a stacked leaf is filled part by part,
-        each part's gradient freed once copied."""
-        if not self.stacked:
-            p = self.parts[0]
-            g, p.grad = (torch.zeros_like(p) if p.grad is None else p.grad), None
-            return g
-        out = torch.zeros(self.shape, dtype=self.parts[0].dtype, device=self.parts[0].device)
-        for i, p in enumerate(self.parts):
-            if p.grad is not None:
-                out[i].copy_(p.grad)
-                p.grad = None
-        return out
+        leaving the parts without one.  On a sharded model the gradient is a
+        DTensor with the leaf's placements."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.parts]
+        for p in self.parts:
+            p.grad = None
+        return torch.stack(grads) if self.stacked else grads[0]
 
     def views(self, t: torch.Tensor) -> list[torch.Tensor]:
         """A leaf-shaped tensor as one view per part."""
@@ -151,6 +202,9 @@ def param_leaves(model: "LM") -> list[ParamLeaf]:
     single: dict[tuple, nn.Parameter] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
+        if "parametrizations" in parts:  # a sharded model: ...parametrizations.<name>.original
+            i = parts.index("parametrizations")
+            parts = parts[:i] + [parts[i + 1]]
         if parts[-1] in _NORMS:
             parts.append("scale")
         if parts[0] == "layers":
@@ -160,10 +214,76 @@ def param_leaves(model: "LM") -> list[ParamLeaf]:
             groups.setdefault(("encoder", "layers", *parts[3:]), {})[int(parts[2])] = p
         else:
             single[tuple(parts)] = p
-    leaves = [ParamLeaf(path, (p,), False) for path, p in single.items()]
-    leaves += [ParamLeaf(path, tuple(per[j] for j in range(len(per))), True)
+    specs = spec_lm(model.cfg)
+
+    def spec(path: tuple) -> P:
+        tree = specs
+        for key in path:
+            tree = tree[key]
+        return tree
+
+    leaves = [ParamLeaf(path, (p,), False, spec(path)) for path, p in single.items()]
+    leaves += [ParamLeaf(path, tuple(per[j] for j in range(len(per))), True, spec(path))
                for path, per in groups.items()]
     return sorted(leaves, key=lambda leaf: leaf.path)
+
+
+class Gather(nn.Module):
+    """The parametrization of a sharded parameter: its DTensor read as the
+    full tensor (an all-gather over the mesh dimensions that shard it).
+
+    In the backward the full-size gradient of this rank's rows is taken as a
+    pending sum over ``batch_dims`` (the mesh dimensions that split the
+    batch) and as the same on every rank of the others, and DTensor brings
+    it to the parameter's placements: a reduce-scatter (or an all-reduce,
+    for a parameter replicated there) over the former, this rank's slice
+    over the latter.  One instance serves every parameter of a model; the
+    train step sets ``batch_dims`` for its batch."""
+
+    def __init__(self, mesh, batch_dims: tuple = ()):
+        super().__init__()
+        self.mesh = mesh
+        self.batch_dims = tuple(batch_dims)
+
+    def forward(self, x):
+        from torch.distributed.tensor import Partial, Replicate
+
+        n = self.mesh.ndim
+        grads = [Partial() if i in self.batch_dims else Replicate() for i in range(n)]
+        return x.redistribute(self.mesh, [Replicate()] * n).to_local(grad_placements=grads)
+
+
+def shard_lm(model: LM, mesh) -> LM:
+    """Store ``model``'s parameters as DTensors on ``mesh`` (a
+    ``DeviceMesh`` with named dimensions), each placed by the sanitized spec
+    of its reference leaf (a stacked leaf's part takes the spec without the
+    period axis), and read each through a :class:`Gather`
+    parametrization.  Every rank must hold the same full weights (each keeps
+    its slice, with no communication).  Returns the model; its
+    ``sharding`` is the :class:`Gather`, whose ``batch_dims`` start as the
+    mesh's data-parallel axes (``DP_AXES``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import DP_AXES
+
+    if model.sharding is not None:
+        raise ValueError("the model is sharded already")
+    names = list(mesh.mesh_dim_names)
+    gather = Gather(mesh, tuple(names.index(a) for a in DP_AXES if a in names))
+    part_spec = {}
+    for leaf in param_leaves(model):
+        for p in leaf.parts:
+            part_spec[id(p)] = P(*leaf.spec[1:]) if leaf.stacked else leaf.spec
+    with torch.no_grad():
+        for mod in list(model.modules()):
+            for name, p in list(mod.named_parameters(recurse=False)):
+                placements = named(part_spec[id(p)], p.shape, mesh)
+                local = distribute_tensor(p.detach(), mesh, placements, src_data_rank=None)
+                setattr(mod, name, nn.Parameter(local, requires_grad=p.requires_grad))
+                # the gather keeps the shape and dtype: no check call (a collective)
+                parametrize.register_parametrization(mod, name, gather, unsafe=True)
+    model.sharding = gather
+    return model
 
 
 def init_lm(cfg: ArchConfig, *, generator: torch.Generator | None = None,
@@ -272,7 +392,8 @@ def _train_layers(model: LM, x, ctx, remat: bool, remat_policy: str | None):
 
 
 def lm_forward(model: LM, tokens: torch.Tensor, *, cross_src=None, remat: bool = True,
-               remat_policy: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               remat_policy: str | None = None, dp_groups=()
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The training forward over a full sequence: logits (B, S,
     padded_vocab) and the MoE load-balance aux loss summed over layers
     (float32; 0 without experts), both differentiable.  ``cross_src`` (B,
@@ -280,11 +401,14 @@ def lm_forward(model: LM, tokens: torch.Tensor, *, cross_src=None, remat: bool =
     recomputes each period (and each position of a multi-position period)
     in the backward instead of keeping its activations; ``remat_policy``
     ``"dots"`` keeps the matrix products' outputs.  Remat applies only
-    where a gradient is being recorded."""
+    where a gradient is being recorded.  ``dp_groups``: the process groups
+    over which the global batch is split, ``tokens`` being this rank's rows
+    (the MoE layers take their routing groups and aux loss over the global
+    batch); none for the whole batch."""
     tokens = torch.as_tensor(tokens, device=model.device)
     x = embed(model.embed, tokens)
     ctx = {"positions": torch.arange(tokens.shape[1], device=model.device)[None, :],
-           "cross_src": _context(model, cross_src)}
+           "cross_src": _context(model, cross_src), "dp_groups": tuple(dp_groups)}
     remat = remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in model.parameters())
     x, aux = _train_layers(model, x, ctx, remat, remat_policy)

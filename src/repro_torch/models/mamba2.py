@@ -19,12 +19,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.cfa.api import resolve_device
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.ssd import ssd_decode_step, ssd_scan
 
 from .config import ArchConfig
-from .layers import _cd, _normal, _param, rms_norm, silu
+from .layers import _cd, _normal, _param, rms_norm, silu, spec_norm
 
-__all__ = ["Mamba2", "mamba_train", "mamba_prefill", "mamba_decode", "MambaCache"]
+__all__ = ["Mamba2", "spec_mamba", "mamba_train", "mamba_prefill", "mamba_decode",
+           "MambaCache"]
 
 
 @dataclasses.dataclass
@@ -80,6 +82,25 @@ class Mamba2(nn.Module):
                 for name, shape, scale in self._mats:
                     w = getattr(self, name)
                     w.copy_(_normal(shape, scale, w.dtype, generator, w.device))
+
+
+def spec_mamba(cfg: ArchConfig) -> dict:
+    """The reference's logical specs of the mixer's weights."""
+    return {
+        "w_x": P("data", "model"),
+        "w_z": P("data", "model"),
+        "w_B": P("data", None),
+        "w_C": P("data", None),
+        "w_dt": P("data", "model"),
+        "dt_bias": P(None),
+        "A_log": P(None),
+        "D": P(None),
+        "conv_x": P(None, "model"),
+        "conv_B": P(None, None),
+        "conv_C": P(None, None),
+        "norm": spec_norm(),
+        "w_out": P("model", "data"),
+    }
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = None):

@@ -15,17 +15,28 @@ The dispatch is dense, as in the reference: every expert's weights are
 read for every group, whether or not a token was routed to it.  The
 reference's sharding hints (``constrain``) have no numeric effect and are
 not carried over.
+
+Under a data-parallel split (a meshed train step hands each rank its rows
+of the global batch, with ``dp_groups``) the reference's quantities over
+the global batch are kept: the group size comes from the global token
+count, each rank's tokens must make whole groups (else a group would span
+ranks, and the call raises), and the aux loss's two means are all-reduced,
+differentiably, before their product.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import P
+
 from .config import ArchConfig
 from .layers import _cd, _normal, _param, silu
 
-__all__ = ["MoE", "init_moe", "moe", "top_k"]
+__all__ = ["MoE", "init_moe", "spec_moe", "moe", "top_k"]
 
 
 class MoE(nn.Module):
@@ -57,6 +68,17 @@ def init_moe(cfg: ArchConfig, *, generator: torch.Generator | None = None,
     return MoE(cfg, device=device, generator=generator, dtype=dtype)
 
 
+def spec_moe() -> dict:
+    """The reference's logical specs: experts over 'model' (EP), the d_model
+    dim FSDP over 'data'."""
+    return {
+        "router": P("data", None),
+        "w1": P("model", "data", None),
+        "w3": P("model", "data", None),
+        "w2": P("model", None, "data"),
+    }
+
+
 def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` largest entries of the last axis and their indices, largest
     first and, among equal values, the lower index first (``jax.lax.top_k``'s
@@ -65,15 +87,30 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def moe(m: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _mean_over(t: torch.Tensor, dp_groups, n: int) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``dp_groups`` (``n`` in all); its
+    gradient is all-reduced too."""
+    from torch.distributed.nn.functional import all_reduce
+
+    for g in dp_groups:
+        t = all_reduce(t, group=g)
+    return t / n
+
+
+def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, S, d) in the compute dtype, load-balance aux loss
-    (float32 scalar))."""
+    (float32 scalar)).  ``dp_groups``: the process groups over which the
+    batch is split (none: ``x`` is the whole batch)."""
     cfg = m.cfg
     B, S, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     cd = _cd(cfg)
     T = B * S
-    gs = min(cfg.moe_group_size, T)
+    n_dp = math.prod(g.size() for g in dp_groups)
+    gs = min(cfg.moe_group_size, T * n_dp)  # over the global batch's tokens
+    if n_dp > 1 and T % gs:
+        raise ValueError(f"a rank's {T} tokens do not make whole routing groups of {gs} "
+                         f"(the global batch's {T * n_dp}): a group would span ranks")
     pad = (-T) % gs
     xt = x.reshape(T, d)
     if pad:
@@ -118,5 +155,8 @@ def moe(m: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     frac_tokens = F.one_hot(top_idx[..., 0], e).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
+    if n_dp > 1:
+        frac_tokens = _mean_over(frac_tokens, dp_groups, n_dp)
+        frac_probs = _mean_over(frac_probs, dp_groups, n_dp)
     aux = e * torch.sum(frac_tokens * frac_probs)
     return out, aux

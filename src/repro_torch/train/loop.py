@@ -16,6 +16,15 @@ drawn from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
 CUDA device unless the caller asks for the CPU).  A checkpoint holds the
 model's leaves (``param_leaves``) and the optimizer state, in the
 reference's order.
+
+With ``mesh`` (a ``DeviceMesh`` over every rank, each rank running the same
+``Trainer``), every rank draws the same full weights, ``shard_lm`` places
+them and the optimizer makes its moments with the placements of
+``opt_state_specs``; the data pipeline yields the global batch, which the
+step slices, and the loop runs under ``use_mesh(mesh)``.  Checkpoints are
+gathered whole and written by rank 0 (``CheckpointManager``), a restart
+restores them onto the current mesh's placements, and a preemption seen by
+any rank stops every rank after the same step.
 """
 from __future__ import annotations
 
@@ -28,8 +37,9 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.cfa.api import resolve_device
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.distributed.sharding import use_mesh
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import init_lm, param_leaves
+from repro_torch.models.lm import init_lm, param_leaves, shard_lm
 from repro_torch.optim import make_optimizer
 from repro_torch.train.steps import TrainHParams, make_train_step
 
@@ -39,9 +49,10 @@ __all__ = ["Trainer"]
 class Trainer:
     def __init__(self, cfg: ArchConfig, *, batch: int, seq: int,
                  ckpt_dir: str | Path, hp: TrainHParams | None = None,
-                 seed: int = 0, ckpt_every: int = 50, data=None, device="cuda"):
+                 mesh=None, seed: int = 0, ckpt_every: int = 50, data=None, device="cuda"):
         self.cfg = cfg
         self.hp = hp or TrainHParams()
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.ckpt = CheckpointManager(ckpt_dir)
         self.ckpt_every = ckpt_every
@@ -50,6 +61,8 @@ class Trainer:
         opt_init, _ = make_optimizer(cfg.optimizer)
         self.model = init_lm(cfg, generator=torch.Generator(self.device).manual_seed(seed),
                              device=self.device, dtype=cfg.param_dtype)
+        if mesh is not None:
+            shard_lm(self.model, mesh)
         self.leaves = param_leaves(self.model)
         self.opt_state = opt_init(self.leaves)
         self.step_fn = make_train_step(cfg, self.hp)
@@ -64,11 +77,17 @@ class Trainer:
         state's tensors."""
         return [leaf.value() for leaf in self.leaves] + self.opt_state.tensors()
 
+    def shardings(self) -> list:
+        """The placements of every tensor of :meth:`state` (None for plain
+        tensors): the current mesh's, for a restore."""
+        return [getattr(t, "placements", None) for t in self.state()]
+
     def _maybe_restore(self) -> None:
         latest = self.ckpt.latest_step()
         if latest is None:
             return
-        restored = self.ckpt.restore(latest, self.state())
+        with use_mesh(self.mesh):
+            restored = self.ckpt.restore(latest, self.state(), shardings=self.shardings())
         n = len(self.leaves)
         for leaf, value in zip(self.leaves, restored[:n]):
             leaf.assign(value)
@@ -78,30 +97,40 @@ class Trainer:
             self.data.seek(latest)  # deterministic data: resume exactly
 
     def _preempted(self) -> bool:
-        return (self.ckpt.dir / "PREEMPT").exists()
+        """The sentinel file exists (on a mesh: as seen by any rank)."""
+        seen = (self.ckpt.dir / "PREEMPT").exists()
+        if self.mesh is None:
+            return seen
+        import torch.distributed as dist
+
+        flag = torch.tensor(float(seen), device=self.device)
+        for d in range(self.mesh.ndim):
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.mesh.get_group(d))
+        return bool(flag)
 
     # ------------------------------------------------------------------
 
     def run(self, n_steps: int, *, log_every: int = 10,
             step_deadline_s: float | None = None) -> list[dict]:
-        end = self.step + n_steps
-        while self.step < end:
-            t0 = time.time()
-            batch = self.data.next(deadline_s=step_deadline_s)
-            batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-            _, self.opt_state, metrics = self.step_fn(self.model, self.opt_state, batch)
-            self.step += 1
-            if self.step % log_every == 0 or self.step == end:
-                m = {k: float(v) for k, v in metrics.items()}
-                m.update(step=self.step, dt=time.time() - t0,
-                         skipped_batches=self.data.stats["skipped"])
-                self.metrics_log.append(m)
-            if self.step % self.ckpt_every == 0:
-                self.ckpt.save(self.step, self.state())
-            if self._preempted():
-                self.ckpt.save(self.step, self.state(), blocking=True)
-                break
-        self.ckpt.wait()
+        with use_mesh(self.mesh):
+            end = self.step + n_steps
+            while self.step < end:
+                t0 = time.time()
+                batch = self.data.next(deadline_s=step_deadline_s)
+                batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+                _, self.opt_state, metrics = self.step_fn(self.model, self.opt_state, batch)
+                self.step += 1
+                if self.step % log_every == 0 or self.step == end:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m.update(step=self.step, dt=time.time() - t0,
+                             skipped_batches=self.data.stats["skipped"])
+                    self.metrics_log.append(m)
+                if self.step % self.ckpt_every == 0:
+                    self.ckpt.save(self.step, self.state())
+                if self._preempted():
+                    self.ckpt.save(self.step, self.state(), blocking=True)
+                    break
+            self.ckpt.wait()
         return self.metrics_log
 
     def save_metrics(self, path: str | Path) -> None:
