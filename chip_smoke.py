@@ -259,6 +259,32 @@ result line unless every phase passed):
                repro_torch.launch.train`` as a child, whose losses must
                equal the meshed run's; printed: both runs' step ms and
                peak memory, beside the card's name and power limit;
+    pipeline — slice 12's GPipe: ``pipeline_apply`` in ``python -m
+               torch.distributed.run --nproc-per-node 4`` as a child, 4 gloo
+               ranks on the one card (NCCL refuses two ranks on one GPU;
+               gloo sends CPU tensors only, so each tick's activations are
+               staged through the host), each rank one deepseek-67b block at
+               the published widths (d_model 8192, 64 heads, 8 KV heads,
+               d_ff 22016, bf16; depth cut to 4 of 95 layers) held as
+               DTensors ``Shard(0)`` over ``pipe``, 8 microbatches of 1 x
+               2048 tokens through the port's block forward in training
+               mode: the output the same on every rank and equal, bit for
+               bit, to a sequential run of the same blocks in this process;
+               printed: both walls, the bubble 3/11 and the bytes staged per
+               tick;
+    tools    — slice 12's CLIs through the ``main`` that ``python -m
+               repro_torch.tools.<name>`` runs: ``cfa_trace --validate`` on
+               the kernel backend (launches = waves) and the dataflow
+               backend, ``cfa_lint --json --include-baselines`` on the card
+               equal to ``--device cpu``, ``dump_pipeline --verify`` (2
+               ports, ``sharded``), and ``stencil_tile_op`` with the kernel
+               against its plain version on ``KERNEL_CASES``: difference 0,
+               one launch per call;
+    dryrun   — ``python -m repro_torch.launch.dryrun`` for ``DRYRUN_CELLS``
+               (qwen3-0.6b train_4k on 256 fake ranks, jamba-1.5-large-398b
+               long_500k on 512), children started before ``[pipeline]``
+               with no CUDA device visible: each must exit 0 with an ``ok``
+               record (FLOPs, per-rank bytes and collectives printed);
     train timing — ``ssd_scan_bwd`` at the training shape and the serve
                shape (B 1, T 1024) in bfloat16 by graph replay, beside its
                plain version, the forward at the same shape, its bytes
@@ -272,8 +298,8 @@ The phases run in the order device, build, kernels, fetch, small, storage,
 attn-kernel, ssd-kernel, ssd-bwd-kernel, main, kernels-sharded, sharded,
 dataflow, irredundant, fetch-sharded, compressed, distribute,
 halo-quantize, calibrate, h100-target, serve, serve-ctx, jamba-smoke,
-train, train-mesh, timing (stencil, fetch, 1s/2s), serve timing, train
-timing; each
+train, train-mesh, pipeline and tools (with dryrun's children beside
+them), timing (stencil, fetch, 1s/2s), serve timing, train timing; each
 model is freed before the next (olmoe holds 13.8 GB, the VLM 20.2 GB, the
 training run about 37 GiB at its peak): every profiler window that reads
 host calls and kernels together runs before the timing phases'
@@ -383,6 +409,21 @@ TRAIN_CPU_LAYERS, TRAIN_CPU_SEQ = 2, 512
 TRAIN_GRAD_TOL = (1e-3, 1e-6)  # per leaf: 1e-3 max|g_cpu| + 1e-6; the loss within 1e-4
 #: steps of each [train-mesh] run (meshed, unmeshed, the torchrun launcher)
 TRAIN_MESH_STEPS = 2
+#: slice 12's pipeline: deepseek-67b blocks at the published widths (d_model
+#: 8192, 64 heads, 8 KV heads, d_ff 22016, bf16), one per stage, depth cut
+#: from 95 to PIPE_STAGES layers; PIPE_MICRO microbatches of 1 x PIPE_SEQ tokens
+PIPE_ARCH, PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = "deepseek-67b", 4, 8, 2048
+#: [tools]' cfa_trace runs: jacobi2d5p on the kernel backend (``cuda``: one
+#: launch per wave) at TOOLS_SPACE and on the dataflow backend (the CLI
+#: passes no ``use_kernel``, so each tile runs the plain version on the card)
+#: at TOOLS_DATAFLOW_SPACE, both with TOOLS_TILE.  A traced run's per-tile
+#: accounting (``spaces.flow_in_points``, a numpy ``unique`` over the tile's
+#: points, as in the reference) costs about 20 us per point on the host
+#: (627 s at (128, 512, 512) on the card machine), so the spaces are small
+TOOLS_SPACE, TOOLS_DATAFLOW_SPACE, TOOLS_TILE = (32, 128, 128), (16, 64, 64), (8, 32, 32)
+#: [dryrun]'s cells (python -m repro_torch.launch.dryrun), full configurations
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single"),
+                ("jamba-1.5-large-398b", "long_500k", "multi"))
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-370m", "olmoe-1b-7b")
 SERVE_LANES, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_MAX_NEW = 8, 2048, 16, 64
 SERVE_PROMPTS = (64, 1024)  # prompt lengths, seeded uniform, inclusive
@@ -2847,6 +2888,314 @@ def phase_train_mesh(device, batch: int, smi: str) -> dict:
             "comm_share": None if prof is None else prof["comm_s"] / prof["busy_s"]}
 
 
+def _pipe_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(PIPE_ARCH), tp=1)
+
+
+def _pipe_block(cfg, stage: int, device):
+    """Stage ``stage``'s deepseek-67b block: bf16 weights drawn from a CUDA
+    generator seeded ``SEED + stage`` (the same in the parent and the rank)."""
+    from repro_torch.models.blocks import ffn_kind, init_position
+
+    gen = torch.Generator(device).manual_seed(SEED + stage)
+    with torch.no_grad():
+        return init_position("attn", ffn_kind(cfg, 0), cfg, generator=gen, device=device)
+
+
+def _pipe_input(cfg, device) -> torch.Tensor:
+    """(M, 1, PIPE_SEQ, d_model) bf16 microbatches, seeded."""
+    gen = torch.Generator(device).manual_seed(SEED + 100)
+    return torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=gen,
+                       device=device).to(torch.bfloat16)
+
+
+def _pipe_forward(block, h: torch.Tensor) -> torch.Tensor:
+    """The port's block forward in training mode, with no cache."""
+    from repro_torch.models.blocks import apply_position
+
+    ctx = {"positions": torch.arange(h.shape[1], device=h.device)[None, :], "cross_src": None,
+           "dp_groups": ()}
+    return apply_position(block, h, "train", None, ctx)[0]
+
+
+def _pipe_stage_fn(block):
+    """The stage function ``pipeline_apply`` calls: ``_pipe_forward`` with
+    ``block``'s parameters replaced by the stage's rows of the pipeline's
+    stage parameters (``torch.func.functional_call``)."""
+    from torch.func import functional_call
+
+    class _Stage(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.block = block
+
+        def forward(self, h):
+            return _pipe_forward(self.block, h)
+
+    stage = _Stage()
+    return lambda local, h: functional_call(stage, {f"block.{k}": v for k, v in local.items()},
+                                            (h,))
+
+
+def _pipe_rank(out_dir: str) -> int:
+    """One rank of ``[pipeline]``'s child (``python -m torch.distributed.run
+    --nproc-per-node 4 chip_smoke.py --pipeline-rank DIR``): a gloo group,
+    a ("pipe",) mesh of 4 over the one card, this rank's block held as
+    DTensors ``Shard(0)`` over ``pipe`` (local leading dim 1), then
+    ``pipeline_apply`` twice (the second timed); writes its output's hash,
+    its walls and, on rank 0, the output."""
+    import hashlib
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.distributed.pipeline import pipeline_apply
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    try:
+        mesh = init_device_mesh("cuda", (dist.get_world_size(),), mesh_dim_names=("pipe",))
+        cfg = _pipe_cfg()
+        block = _pipe_block(cfg, rank, device)
+        params = {name: DTensor.from_local(p.detach()[None], mesh, [Shard(0)], run_check=False)
+                  for name, p in block.named_parameters()}
+        x = _pipe_input(cfg, device)
+        stage = _pipe_stage_fn(block)
+        walls = []
+        with torch.no_grad():
+            for _ in range(2):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = pipeline_apply(stage, params, x, mesh)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        host = out.cpu()
+        digest = hashlib.sha256(host.view(torch.int16).numpy().tobytes()).hexdigest()
+        if rank == 0:
+            torch.save(host, Path(out_dir) / "out.pt")
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(
+            {"sha256": digest, "walls": walls, "finite": bool(torch.isfinite(out).all()),
+             "shape": list(out.shape), "peak": torch.cuda.max_memory_allocated()}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_pipeline(device, smi: str) -> dict:
+    """Slice 12's GPipe path: ``pipeline_apply`` over 4 gloo ranks on the one
+    card (NCCL refuses two ranks on one GPU, gloo sends CPU tensors only:
+    each tick's activations are staged through the host), each rank one
+    full-width deepseek-67b block (depth cut to 4 of 95 layers) held only by
+    that rank, ``PIPE_MICRO`` microbatches of 1 x ``PIPE_SEQ`` tokens.  The
+    returned tensor must be the same on every rank and equal, bit for bit, a
+    sequential run of the same four blocks in this process on the card
+    (freed before the child starts).  Prints both walls (the four ranks
+    share the card's SMs: the pipelined wall says nothing of a pipeline's
+    speed-up), the bubble fraction and the bytes staged per tick."""
+    import tempfile
+
+    cfg = _pipe_cfg()
+    x = _pipe_input(cfg, device)
+    blocks = [_pipe_block(cfg, s, device) for s in range(PIPE_STAGES)]
+    n_params = sum(p.numel() for p in blocks[0].parameters())
+    walls = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = torch.stack([_sequential(blocks, x[m]) for m in range(PIPE_MICRO)])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    want = want.cpu()
+    del blocks
+    _free()
+    log(f"[pipeline] {PIPE_ARCH} blocks at the published widths (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, bf16), "
+        f"{n_params / 1e9:.3f} B parameters and {n_params * 2 / 1e9:.3f} GB a stage; depth cut "
+        f"to {PIPE_STAGES} of {cfg.n_layers} layers, one per stage; {PIPE_MICRO} microbatches "
+        f"of 1 x {PIPE_SEQ} tokens; sequential run on the card {walls[1]:.3f} s "
+        f"(first {walls[0]:.3f} s)")
+    root = Path(tempfile.mkdtemp(prefix="pipeline_", dir=ROOT / "build"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(PIPE_STAGES), str(ROOT / "chip_smoke.py"), "--pipeline-rank", str(root)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=900)
+    child_wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the pipeline child failed ({res.returncode}):\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-6000:]}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(PIPE_STAGES)]
+    got = torch.load(root / "out.pt")
+    same = len({r["sha256"] for r in ranks}) == 1
+    equal = bit_equal(got, want)
+    diff = max_abs(got, want)
+    wall = max(r["walls"][1] for r in ranks)
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    staged = PIPE_SEQ * cfg.d_model * 2
+    log(f"[pipeline] python -m torch.distributed.run --nproc-per-node {PIPE_STAGES} (gloo, "
+        f"one card): {child_wall:.1f} s in all; pipeline_apply {wall:.3f} s (first call "
+        f"{max(r['walls'][0] for r in ranks):.3f} s), sequential {walls[1]:.3f} s (ratio "
+        f"{wall / walls[1]:.3f}); {ticks} ticks, bubble (S-1)/(M+S-1) = "
+        f"{PIPE_STAGES - 1}/{ticks} = {(PIPE_STAGES - 1) / ticks:.4f}; per tick each rank "
+        f"stages {staged} bytes device->host and {staged} host->device (its send and receive); "
+        f"peak max_memory_allocated per rank "
+        f"{max(r['peak'] for r in ranks) / 2 ** 30:.3f} GiB; card: {smi}")
+    log(f"[pipeline] output {tuple(got.shape)} {got.dtype}: the same on every rank (sha256): "
+        f"{same}; equal to the sequential run bit for bit: {equal} (max abs diff {diff}); "
+        f"finite: {all(r['finite'] for r in ranks)}")
+    if not (same and equal and all(r["finite"] for r in ranks)):
+        raise AssertionError("the pipelined run differs between ranks or from the sequential run")
+    return {"wall": wall, "sequential": walls[1], "staged": staged, "ticks": ticks}
+
+
+def _sequential(blocks, h: torch.Tensor) -> torch.Tensor:
+    """``h`` through ``blocks`` in order (the sequential run)."""
+    for block in blocks:
+        h = _pipe_forward(block, h)
+    return h
+
+
+def phase_tools(device) -> dict:
+    """Slice 12's CLIs on the card, each through the ``main`` that ``python
+    -m repro_torch.tools.<name>`` runs: ``cfa_trace --validate`` on the
+    kernel backend (stencil launches = waves) and on the dataflow backend
+    (the plain version per tile: no launch), ``cfa_lint --json`` on
+    the card equal to the same run on ``--device cpu``, ``dump_pipeline
+    --verify`` (2 ports, ``sharded``), then ``stencil_tile_op`` with
+    ``use_kernel=True`` against ``use_kernel=False`` on the card for every
+    program: difference 0, one launch per call."""
+    import contextlib as _ctx
+    import io
+    import tempfile
+
+    from repro_torch.core.cfa.programs import get_program
+    from repro_torch.kernels.stencil import execute_tiles, stencil_tile_op
+    from repro_torch.tools import cfa_lint, cfa_trace, dump_pipeline
+
+    def run(main, argv) -> tuple[int, str, str]:
+        out, err = io.StringIO(), io.StringIO()
+        with _ctx.redirect_stdout(out), _ctx.redirect_stderr(err):
+            code = main(argv)
+        return code, out.getvalue(), err.getvalue()
+
+    root = Path(tempfile.mkdtemp(prefix="tools_", dir=ROOT / "build"))
+    traced = {}
+    for backend, space in (("cuda", TOOLS_SPACE), ("dataflow", TOOLS_DATAFLOW_SPACE)):
+        argv = ["jacobi2d5p", *map(str, space), "--layout", ",".join(map(str, TOOLS_TILE)),
+                "--backend", backend, "--validate", "--summary", "-o",
+                str(root / f"{backend}.json")]
+        torch.cuda.synchronize()
+        execute_tiles.launches = 0
+        t0 = time.perf_counter()
+        code, _, err = run(cfa_trace.main, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = execute_tiles.launches
+        counters = json.loads(err.split("counters=", 1)[1].splitlines()[0]) \
+            if "counters=" in err else {}
+        size = (root / f"{backend}.json").stat().st_size
+        log(f"[tools] python -m repro_torch.tools.cfa_trace {' '.join(argv[:-2])} -o "
+            f"{backend}.json: exit {code}, {wall:.2f} s, {size} bytes of trace, "
+            f"{counters.get('tiles')} tiles in {counters.get('waves')} waves, {launches} "
+            f"stencil_tiles launches; {err.strip().splitlines()[-1] if err.strip() else ''}")
+        want = counters.get("waves") if backend == "cuda" else 0
+        if code != 0 or "validated: schema ok" not in err or launches != want:
+            raise AssertionError(f"cfa_trace --backend {backend} failed (exit {code}, "
+                                 f"{launches} launches, want {want}):\n{err[-3000:]}")
+        traced[backend] = {"launches": launches, "counters": counters, "wall": wall}
+    t0 = time.perf_counter()
+    card = run(cfa_lint.main, ["--json", "--include-baselines"])
+    t1 = time.perf_counter()
+    cpu = run(cfa_lint.main, ["--json", "--include-baselines", "--device", "cpu"])
+    doc = json.loads(card[1])
+    log(f"[tools] cfa_lint --json --include-baselines: exit {card[0]} on the card "
+        f"({t1 - t0:.1f} s), {cpu[0]} on --device cpu; {len(doc['entries'])} entries, max "
+        f"severity {doc['max_severity']}; findings equal: {card[1] == cpu[1]}")
+    if card[0] != cpu[0] or card[1] != cpu[1]:
+        raise AssertionError("cfa_lint's findings on the card differ from --device cpu")
+    code, out, _ = run(dump_pipeline.main, ["jacobi2d5p", "8", "8", "8", "--layout", "4,4,4",
+                                            "--host-budget", "2000", "--verify"])
+    dumped = json.loads(out)
+    errors = [d for d in dumped["analysis"]["diagnostics"] if d["severity"] == "ERROR"]
+    log(f"[tools] dump_pipeline jacobi2d5p 8 8 8 --layout 4,4,4 --host-budget 2000 --verify: "
+        f"exit {code}; passes {[p['pass'] for p in dumped['passes']]}; compiled "
+        f"{dumped['compiled']}; {len(dumped['analysis']['diagnostics'])} diagnostics, "
+        f"{len(errors)} ERROR")
+    want = {"n_ports": 2, "distributed": True, "backend": "sharded"}
+    if code != 0 or errors or {k: dumped["compiled"][k] for k in want} != want:
+        raise AssertionError(f"dump_pipeline: exit {code}, {dumped['compiled']}, {errors}")
+    rng = np.random.default_rng(SEED)
+    worst = 0.0
+    execute_tiles.launches = 0
+    for name, tile, batch in KERNEL_CASES:
+        w = get_program(name).widths
+        halos = rng_tensor(rng, (batch, *(a + b for a, b in zip(w, tile))), torch.float32,
+                           device)
+        got = stencil_tile_op(name, halos, tile, use_kernel=True)
+        plain = stencil_tile_op(name, halos, tile, use_kernel=False)
+        if not bit_equal(got, plain):
+            raise AssertionError(f"stencil_tile_op {name} {tile}: kernel != plain version")
+        worst = max(worst, max_abs(got, plain))
+    log(f"[tools] stencil_tile_op(use_kernel=True) vs use_kernel=False on the card, "
+        f"{len(KERNEL_CASES)} programs/shapes: max abs diff {worst}; "
+        f"{execute_tiles.launches} launches (one per call)")
+    if execute_tiles.launches != len(KERNEL_CASES):
+        raise AssertionError(f"{execute_tiles.launches} launches for {len(KERNEL_CASES)} calls")
+    return {"traced": traced, "worst": worst}
+
+
+def phase_dryrun_start() -> list:
+    """Start ``[dryrun]``'s cells, one ``python -m repro_torch.launch.dryrun``
+    process each (host only: a fake world of 256 / 512 ranks on meta
+    tensors; no CUDA device is visible to them), to run beside the
+    pipeline and tools phases."""
+    import tempfile
+
+    root = Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, cell, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--cell", cell,
+               "--mesh", mesh, "--out", str(root)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=env)
+        procs.append((proc, (arch, cell, mesh), root, time.perf_counter()))
+    return procs
+
+
+def phase_dryrun_finish(procs: list) -> dict:
+    """Wait for ``[dryrun]``'s cells: each must exit 0 with an ``ok``
+    record; prints its FLOPs (FlopCounterMode), per-rank argument bytes and
+    collectives by kind."""
+    recs = {}
+    for proc, (arch, cell, mesh), root, t0 in procs:
+        out, err = proc.communicate(timeout=900)
+        wall = time.perf_counter() - t0
+        path = root / f"{arch}__{cell}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        if proc.returncode != 0 or rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {cell} {mesh}: exit {proc.returncode}, "
+                                 f"{rec.get('status')}\n{out[-2000:]}\n{err[-4000:]}\n"
+                                 f"{rec.get('trace', '')}")
+        mem = rec["memory"]
+        log(f"[dryrun] python -m repro_torch.launch.dryrun --arch {arch} --cell {cell} --mesh "
+            f"{mesh}: {rec['status']} (build {rec['t_build_s']} s, step {rec['t_step_s']} s on "
+            f"{rec['n_devices']} fake ranks; collected {wall:.1f} s after its start); flops {rec['flops']:.4g} ({rec['flops_source']}); "
+            f"per-rank arguments {mem['argument_size_in_bytes']} B {mem['arguments']}, outputs "
+            f"{mem['output_size_in_bytes']} B; collectives {rec['collectives']['counts']}, "
+            f"bytes {rec['collectives']['bytes']}; no counterpart: {rec['no_counterpart']}")
+        recs[(arch, cell, mesh)] = rec
+    return recs
+
+
 def _ssd_bwd_bound(B: int, T: int, H: int, P: int, N: int, L: int,
                    esize: int) -> tuple[float, str, float]:
     """(bound ms, what bounds it, the f32-pipe operations figure) of one
@@ -3148,11 +3497,16 @@ def main() -> int:
                     help="time steps of the full-width paths (default: each path's "
                          f"size, {MAIN_SPACE[0]}, {IRREDUNDANT_SPACE[0]}, "
                          f"{COMPRESSED_SPACE[0]} and {H100_SPACE[0]})")
+    ap.add_argument("--pipeline-rank", default=None, metavar="DIR",
+                    help="run one rank of the [pipeline] phase's child (under "
+                         "torch.distributed.run), writing into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    if args.pipeline_rank is not None:
+        return _pipe_rank(args.pipeline_rank)
     # keep the autotuner's decision cache inside the checkout
     os.environ.setdefault("REPRO_AUTOTUNE_CACHE", str(ROOT / "build" / "autotune"))
     device = torch.device("cuda", 0)
@@ -3198,6 +3552,16 @@ def main() -> int:
     _free()
     train_run = phase_train(device)
     mesh_run = phase_train_mesh(device, train_run["batch"], smi)
+    dry = phase_dryrun_start()
+    try:
+        phase_pipeline(device, smi)
+        tools_run = phase_tools(device)
+        phase_dryrun_finish(dry)
+    finally:
+        for proc, *_ in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     rows = phase_timing(device, main_run, irr_run)
     fetch_row = phase_fetch_timing(irr_run)
     sharded_rows = phase_sharded_timing(device, main_run, irr_run, fetch_row,
@@ -3283,6 +3647,10 @@ def main() -> int:
         f"ssd_scan_bwd {launches['ssd_scan_bwd']}; over the meshed path ({TRAIN_MESH_STEPS} "
         f"steps): ssd_scan {mesh_run['launches']['ssd_scan']}, ssd_scan_bwd "
         f"{mesh_run['launches']['ssd_scan_bwd']}")
+    log(f"[done] launches over [tools]: stencil_tiles {tools_run['traced']['cuda']['launches']} "
+        f"(cfa_trace --backend cuda, one per wave), 0 (--backend dataflow: the plain version), "
+        f"{len(KERNEL_CASES)} (stencil_tile_op); [pipeline] and [dryrun] launch no kernel of "
+        f"the port (dense blocks; meta tensors)")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,11 @@ run at the same time on two streams of one device (they would share the
 tickets); the port's paths make them on one stream.
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors
-it launches the kernel or raises — it never falls back.
+it launches the kernel or raises — it never falls back.  For ``meta``
+tensors (a dry run's shapes) it makes the kernel's checks, then propagates
+shapes through the plain version: shape propagation only, nothing is
+computed.  A DTensor raises: a sharded model gathers its parameters where a
+layer reads them, so the kernel only ever sees plain tensors.
 ``decode_attention.launches`` counts kernel launches (the plain path does
 not count).
 """
@@ -145,6 +149,11 @@ def decode_attention(
     v_blocks: torch.Tensor,  # (B, nb, Hkv, bs, D)
     lengths: torch.Tensor,  # (B,) int — valid prefix length per row
 ) -> torch.Tensor:  # (B, Hq, D) in q.dtype
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in (q, k_blocks, v_blocks, lengths)):
+        raise TypeError("decode_attention takes plain tensors, not DTensors: gather a sharded "
+                        "operand first")
     if q.dim() != 3 or k_blocks.dim() != 5 or k_blocks.shape != v_blocks.shape:
         raise ValueError(f"want q (B,Hq,D) and K/V (B,nb,Hkv,bs,D), got "
                          f"{tuple(q.shape)}, {tuple(k_blocks.shape)}, {tuple(v_blocks.shape)}")
@@ -163,8 +172,8 @@ def decode_attention(
     device = q.device
     if device.type == "cpu":
         return decode_attention_ref(q, deblockify(k_blocks), deblockify(v_blocks), lengths)
-    if device.type != "cuda":
-        raise ValueError(f"tensors must be on a CUDA device or the CPU, got {device}")
+    if device.type not in ("cuda", "meta"):
+        raise ValueError(f"tensors must be on a CUDA device, the CPU or meta, got {device}")
     if k_blocks.dtype != v_blocks.dtype or (q.dtype, k_blocks.dtype) not in _PAIRS:
         raise TypeError(f"the kernel takes (q, K/V) dtypes {sorted(map(str, _PAIRS))}, got "
                         f"{q.dtype}, {k_blocks.dtype}/{v_blocks.dtype}")
@@ -176,6 +185,9 @@ def decode_attention(
                          f"of shared memory > {MAX_SMEM}")
     if not all(t.is_contiguous() for t in (q, k_blocks, v_blocks)):
         raise ValueError("q, K and V must be contiguous")
+    if device.type == "meta":  # shapes only, after the kernel's checks: nothing is computed
+        return decode_attention_ref(q, deblockify(k_blocks), deblockify(v_blocks),
+                                    lengths.to(device))
     if lengths.device != device:
         lengths = lengths.to(device)
     if lengths.dtype not in _LEN_CODES:

@@ -32,7 +32,10 @@ scratch and shared memory).  A call that needs no gradient (serving) launches th
 scan alone, as before.
 
 For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
-they launch the kernels or raise — they never fall back.  A DTensor (which
+they launch the kernels or raise — they never fall back.  For ``meta``
+tensors (a dry run's shapes) they make the kernels' checks, then propagate
+shapes through the plain versions, the gradient included: shape
+propagation only, nothing is computed.  A DTensor (which
 reports its local device) raises: a sharded model gathers its parameters
 where a layer reads them, so the kernels only ever see plain tensors.
 ``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count kernel launches
@@ -273,8 +276,8 @@ def _check(x, loga, Bmat, C, chunk) -> None:
         raise ValueError(f"x, loga, B and C must share one device, got "
                          f"{sorted(map(str, devices))}")
     device = x.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"tensors must be on a CUDA device or the CPU, got {device}")
+    if device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"tensors must be on a CUDA device, the CPU or meta, got {device}")
     if device.type == "cpu":
         return
     if x.dtype not in _CODES or Bmat.dtype != x.dtype or C.dtype != x.dtype:
@@ -345,7 +348,7 @@ def ssd_scan(
     Differentiable: on CUDA tensors through ``_SsdScan`` (the backward
     kernel), on the CPU through the plain version."""
     _check(x, loga, Bmat, C, chunk)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: shapes only (gradient too), nothing computed
         return ssd_chunked_ref(x, loga, Bmat, C, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, loga, Bmat, C)):
         return _SsdScan.apply(x, loga, Bmat, C, chunk)
@@ -377,7 +380,7 @@ def ssd_scan_bwd(
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not match x "
                          f"{tuple(x.shape)} on {x.device}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):  # meta: shapes only, nothing computed
         return ssd_chunked_bwd_ref(x, loga, Bmat, C, dy, dstate, chunk)
     Bb, T, H, P = x.shape
     N, nc = Bmat.shape[-1], T // chunk

@@ -18,7 +18,9 @@ arguments again.  The call is checked and packed once (``_check``), then
 each port only launches (``_launch``).  On the CPU the shards run the plain
 version (``execute_tiles_ref``) in port order.  A launch error raises;
 nothing falls back.  ``execute_tiles_sharded.launches`` counts the per-port
-kernel launches it makes.
+kernel launches it makes.  :func:`stencil_tile_op` is the reference's
+kernel-or-plain dispatch over one batch (its ``interpret`` has no
+counterpart).
 """
 from __future__ import annotations
 
@@ -28,7 +30,22 @@ from . import stencil as _stencil
 from .ref import execute_tiles_ref
 from .stencil import execute_tiles
 
-__all__ = ["execute_tiles", "execute_tiles_ref", "execute_tiles_sharded"]
+__all__ = ["execute_tiles", "execute_tiles_ref", "stencil_tile_op", "execute_tiles_sharded"]
+
+
+def stencil_tile_op(
+    program_name: str,
+    halos: torch.Tensor,  # (B, w0+t0, .., w_{d-1}+t_{d-1})
+    tile: tuple[int, ...],
+    *,
+    use_kernel: bool = True,
+) -> torch.Tensor:  # (B, t0, .., t_{d-1})
+    """Execute a batch of stencil tiles: through the kernel's wrapper
+    (:func:`execute_tiles`, which launches it on a CUDA tensor and runs its
+    plain version on a CPU one), or the plain version itself."""
+    if use_kernel:
+        return execute_tiles(program_name, halos, tile)
+    return execute_tiles_ref(program_name, halos, tile)
 
 
 def execute_tiles_sharded(

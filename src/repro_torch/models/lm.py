@@ -99,6 +99,7 @@ class LM(nn.Module):
         if dtype is not None:
             self.requires_grad_(True)
         self.sharding = None  # a Gather once shard_lm has placed the parameters
+        self.param_specs = None  # the leaves' spec tree when it is not spec_lm's (shard_lm)
 
     @property
     def device(self) -> torch.device:
@@ -214,7 +215,7 @@ def param_leaves(model: "LM") -> list[ParamLeaf]:
             groups.setdefault(("encoder", "layers", *parts[3:]), {})[int(parts[2])] = p
         else:
             single[tuple(parts)] = p
-    specs = spec_lm(model.cfg)
+    specs = model.param_specs or spec_lm(model.cfg)
 
     def spec(path: tuple) -> P:
         tree = specs
@@ -253,11 +254,13 @@ class Gather(nn.Module):
         return x.redistribute(self.mesh, [Replicate()] * n).to_local(grad_placements=grads)
 
 
-def shard_lm(model: LM, mesh) -> LM:
+def shard_lm(model: LM, mesh, specs: dict | None = None) -> LM:
     """Store ``model``'s parameters as DTensors on ``mesh`` (a
     ``DeviceMesh`` with named dimensions), each placed by the sanitized spec
     of its reference leaf (a stacked leaf's part takes the spec without the
-    period axis), and read each through a :class:`Gather`
+    period axis) — from ``spec_lm``, or from ``specs``, a tree of the same
+    shape (e.g. ``translate_specs`` of it: serving weights without FSDP),
+    which the leaves then carry — and read each through a :class:`Gather`
     parametrization.  Every rank must hold the same full weights (each keeps
     its slice, with no communication).  Returns the model; its
     ``sharding`` is the :class:`Gather`, whose ``batch_dims`` start as the
@@ -268,6 +271,8 @@ def shard_lm(model: LM, mesh) -> LM:
 
     if model.sharding is not None:
         raise ValueError("the model is sharded already")
+    if specs is not None:
+        model.param_specs = specs
     names = list(mesh.mesh_dim_names)
     gather = Gather(mesh, tuple(names.index(a) for a in DP_AXES if a in names))
     part_spec = {}
@@ -290,11 +295,14 @@ def init_lm(cfg: ArchConfig, *, generator: torch.Generator | None = None,
             device="cuda", dtype=None) -> LM:
     """A model with random weights drawn from ``generator`` (the reference's
     shapes, scales and distributions; not its values).  The generator must
-    live on ``device``; without one, a CPU or CUDA generator seeded 0.
+    live on ``device``; without one, a CPU or CUDA generator seeded 0.  On
+    the ``meta`` device (a dry run) nothing is drawn.
     ``dtype``: None for a serving model; ``cfg.param_dtype`` for a training
     model (the reference's ``init_lm``; see :class:`LM`)."""
     device = resolve_device(device)
-    if generator is None:
+    if device.type == "meta":  # shapes only: nothing to draw
+        generator = None
+    elif generator is None:
         generator = torch.Generator(device).manual_seed(0)
     with torch.no_grad():
         return LM(cfg, device=device, generator=generator, dtype=dtype)

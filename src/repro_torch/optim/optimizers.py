@@ -87,10 +87,13 @@ def _zeros(shape, spec: P, mesh, device) -> torch.Tensor:
     """float32 zeros: plain, or a DTensor laid out by ``spec`` on ``mesh``."""
     if mesh is None:
         return torch.zeros(shape, dtype=torch.float32, device=device)
-    from torch.distributed.tensor import zeros
+    from torch.distributed.tensor import distribute_tensor, zeros
 
-    return zeros(shape, dtype=torch.float32, device_mesh=mesh,
-                 placements=named(spec, shape, mesh))
+    placements = named(spec, shape, mesh)
+    if device.type == "meta":  # a dry run's parameters: shards on meta, not the mesh's device
+        return distribute_tensor(torch.zeros(shape, dtype=torch.float32, device=device), mesh,
+                                 placements, src_data_rank=None)
+    return zeros(shape, dtype=torch.float32, device_mesh=mesh, placements=placements)
 
 
 def _moments(leaves, optimizer: str) -> OptState:

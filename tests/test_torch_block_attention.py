@@ -295,8 +295,52 @@ def test_rejects_what_the_kernel_does_not_take():
         decode_attention(torch.zeros((2, 8, 4)), k, k, torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError, match=r"want q \(B,Hq,D\)"):
         decode_attention(q, k, k[:, :, :2], torch.ones(2, dtype=torch.int32))
-    with pytest.raises(ValueError, match="CUDA device or the CPU"):
-        decode_attention(q.to("meta"), k.to("meta"), k.to("meta"), torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA device, the CPU or meta"):
+        decode_attention(q.as_subclass(_Elsewhere), k.as_subclass(_Elsewhere),
+                         k.as_subclass(_Elsewhere), torch.ones(2))
+
+
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device the wrapper does not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_tensors_propagate_the_shapes_of_the_cpu_output(dtype):
+    """A dry run's ``meta`` tensors: the kernel's checks, then the plain
+    version's shape and dtype; nothing launches."""
+    q, kc, vc, lengths = _inputs(2, 3, 8, 2, 16, 40)
+    kb = blockify(torch.from_numpy(kc).to(dtype), 8)
+    vb = blockify(torch.from_numpy(vc).to(dtype), 8)
+    qt = torch.from_numpy(q).to(dtype)
+    lt = torch.as_tensor(lengths, dtype=torch.int32)
+    decode_attention.launches = 0
+    want = decode_attention(qt, kb, vb, lt)
+    got = decode_attention(qt.to("meta"), kb.to("meta"), vb.to("meta"), lt.to("meta"))
+    assert decode_attention.launches == 0
+    assert got.device.type == "meta" and (got.shape, got.dtype) == (want.shape, want.dtype)
+    with pytest.raises(TypeError, match="the kernel takes"):  # its own checks run on meta
+        decode_attention(qt.to("meta", torch.float64), kb.to("meta"), vb.to("meta"),
+                         lt.to("meta"))
+
+
+def test_a_dtensor_raises():
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    q = torch.zeros((2, 8, 8))
+    k = torch.zeros((2, 1, 4, 4, 8))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        with pytest.raises(TypeError, match="not DTensors"):
+            decode_attention(distribute_tensor(q, mesh), k, k, torch.ones(2, dtype=torch.int32))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_c_entry_point_matches_the_ctypes_binding():

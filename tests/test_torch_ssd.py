@@ -370,8 +370,59 @@ def test_rejects_what_the_kernel_does_not_take():
         ssd_scan(x, loga[:, :, :1], Bm, C, chunk=8)
     with pytest.raises(ValueError, match="want x"):
         ssd_scan(x, loga, Bm, C[..., :2], chunk=8)
-    with pytest.raises(ValueError, match="CUDA device or the CPU"):
-        ssd_scan(*(a.to("meta") for a in (x, loga, Bm, C)), chunk=8)
+    with pytest.raises(ValueError, match="CUDA device, the CPU or meta"):
+        ssd_scan(*(a.as_subclass(_Elsewhere) for a in (x, loga, Bm, C)), chunk=8)
+    with pytest.raises(ValueError, match="CUDA device, the CPU or meta"):
+        ssd_scan_bwd(*(a.as_subclass(_Elsewhere) for a in (x, loga, Bm, C, x)), chunk=8)
+
+
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device the wrappers do not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_tensors_propagate_the_shapes_of_the_cpu_outputs(dtype):
+    """A dry run's ``meta`` tensors: the kernel's checks, then the plain
+    version's shapes and dtypes — outputs and gradients alike."""
+    cpu = [t.requires_grad_() for t in _torch(*_inputs(3, 2, 32, 3, 8, 4), dtype=dtype)]
+    meta = [t.detach().to("meta").requires_grad_() for t in cpu]
+    ssd_scan.launches = ssd_scan_bwd.launches = 0
+    outs = {}
+    for name, args in (("cpu", cpu), ("meta", meta)):
+        y, s = ssd_scan(*args, chunk=8)
+        grads = torch.autograd.grad((y.float().sum() + s.sum()), args)
+        outs[name] = [y, s, *grads]
+        dx = ssd_scan_bwd(*(a.detach() for a in args), y.detach(), s.detach(), chunk=8)
+        outs[name] += list(dx)
+    assert ssd_scan.launches == ssd_scan_bwd.launches == 0
+    for c, m in zip(outs["cpu"], outs["meta"]):
+        assert m.device.type == "meta"
+        assert (m.shape, m.dtype) == (c.shape, c.dtype)
+    # the kernel's own checks run on meta too
+    with pytest.raises(TypeError, match="loga must be float32"):
+        ssd_scan(meta[0], meta[1].to(torch.float64), meta[2], meta[3], chunk=8)
+
+
+def test_a_dtensor_raises():
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    x, loga, Bm, C = _torch(*_inputs(1, 1, 16, 2, 4, 4))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        xd = distribute_tensor(x, mesh)
+        with pytest.raises(TypeError, match="not DTensors"):
+            ssd_scan(xd, loga, Bm, C, chunk=8)
+        with pytest.raises(TypeError, match="not DTensors"):
+            ssd_scan_bwd(x, loga, Bm, C, xd, chunk=8)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_c_entry_point_matches_the_ctypes_binding():
