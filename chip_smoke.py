@@ -285,6 +285,26 @@ result line unless every phase passed):
                long_500k on 512), children started before ``[pipeline]``
                with no CUDA device visible: each must exit 0 with an ``ok``
                record (FLOPs, per-rank bytes and collectives printed);
+    examples — slice 13's ``python -m repro_torch.examples.<name>``, each a
+               child with no ``--device`` (so on the card), exit 0 and ``OK``
+               last, after ``[dryrun]``'s children are collected:
+               ``quickstart`` and ``stencil_pipeline`` (``stencil_tiles``
+               launches = waves, ``cuda`` == ``sweep`` / ``wavefront`` bit for
+               bit), ``serve_decode`` (``decode_attention`` launches = the
+               SMOKE config's attention layers x decode steps) and
+               ``pipeline_parallel`` (4 gloo ranks on the card, err < 1e-5,
+               bubble 3/11) side by side, beside ``train_lm --steps
+               EXAMPLES_TRAIN_STEPS`` (``CFG_100M``, batch 4 x 256) stopped by
+               its ``PREEMPT`` sentinel after its step-50 checkpoint and rerun
+               with the same command; then the uninterrupted run alone
+               (``train_lm.run`` in this process): the logged losses it shares
+               with the other two runs and their last common checkpoint
+               bit-equal; printed: ms/step, tokens/s, peak memory; then one
+               profiled ``CFG_100M`` step (device busy share, model FLOPs) and
+               card vs CPU gradients on its 2-layer cut (batch 1, seq 256,
+               float32 compute): every leaf within 1e-3 max|g_cpu| + 1e-6, the
+               loss within 1e-4 relative — dense attention's backward on the
+               card;
     train timing — ``ssd_scan_bwd`` at the training shape and the serve
                shape (B 1, T 1024) in bfloat16 by graph replay, beside its
                plain version, the forward at the same shape, its bytes
@@ -299,7 +319,7 @@ attn-kernel, ssd-kernel, ssd-bwd-kernel, main, kernels-sharded, sharded,
 dataflow, irredundant, fetch-sharded, compressed, distribute,
 halo-quantize, calibrate, h100-target, serve, serve-ctx, jamba-smoke,
 train, train-mesh, pipeline and tools (with dryrun's children beside
-them), timing (stencil, fetch, 1s/2s), serve timing, train timing; each
+them), examples, timing (stencil, fetch, 1s/2s), serve timing, train timing; each
 model is freed before the next (olmoe holds 13.8 GB, the VLM 20.2 GB, the
 training run about 37 GiB at its peak): every profiler window that reads
 host calls and kernels together runs before the timing phases'
@@ -317,9 +337,11 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -407,6 +429,12 @@ SSD_TRAIN_SHAPE = (8, 4096, 32, 64, 128, 128)
 #: the card-vs-CPU gradient check: a full-width cut, float32 compute
 TRAIN_CPU_LAYERS, TRAIN_CPU_SEQ = 2, 512
 TRAIN_GRAD_TOL = (1e-3, 1e-6)  # per leaf: 1e-3 max|g_cpu| + 1e-6; the loss within 1e-4
+#: [examples]: train_lm's steps (cut from the example's 300 for the script's
+#: time; 120 leaves a common checkpoint, step 100, after a stop past step 50),
+#: its checkpoint interval (fixed in the example), and the card-vs-CPU
+#: gradient cut of CFG_100M
+EXAMPLES_TRAIN_STEPS, EXAMPLES_CKPT_EVERY = 120, 50
+EXAMPLES_CPU_LAYERS, EXAMPLES_CPU_SEQ = 2, 256
 #: steps of each [train-mesh] run (meshed, unmeshed, the torchrun launcher)
 TRAIN_MESH_STEPS = 2
 #: slice 12's pipeline: deepseek-67b blocks at the published widths (d_model
@@ -2591,19 +2619,18 @@ def _profile_step(trainer, batch: dict, tag: str = "[train]") -> dict | None:
     return {"wall_s": wall, "busy_s": busy, "comm_s": comm_s, "calls": calls}
 
 
-def _train_grads_cpu_check(device) -> dict:
-    """Card vs CPU: the loss and every gradient leaf of a full-width cut
-    (``TRAIN_CPU_LAYERS`` layers, batch 1, ``TRAIN_CPU_SEQ`` tokens, float32
-    compute, remat on), the card's weights copied to the CPU."""
+def _grads_cpu_check(device, cfg, seq: int, tag: str) -> dict:
+    """Card vs CPU: the loss and every gradient leaf of ``cfg`` (a full-width
+    cut in float32 compute; batch 1, ``seq`` tokens, remat on), the card's
+    weights copied to the CPU."""
     from repro_torch.interop import lm_from_numpy, lm_to_numpy
     from repro_torch.models.lm import init_lm, param_leaves
     from repro_torch.train.steps import TrainHParams, loss_fn
 
-    cfg = _train_cfg(n_layers=TRAIN_CPU_LAYERS, compute_dtype="float32")
     card = init_lm(cfg, generator=torch.Generator(device).manual_seed(SEED), device=device,
                    dtype=cfg.param_dtype)
     host = lm_from_numpy(cfg, lm_to_numpy(card), device="cpu", dtype=cfg.param_dtype)
-    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, size=(1, TRAIN_CPU_SEQ))
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, size=(1, seq))
     hp = TrainHParams(remat=True)
     out = {}
     for name, model in (("card", card), ("cpu", host)):
@@ -2617,14 +2644,14 @@ def _train_grads_cpu_check(device) -> dict:
         ex = _excess(g, w, (0.0, TRAIN_GRAD_TOL[0] * float(w.abs().max()) + TRAIN_GRAD_TOL[1]))
         if ex >= worst:
             worst, worst_leaf = ex, "/".join(leaf.path)
-    log(f"[train] card vs CPU gradients, {TRAIN_ARCH} cut to {TRAIN_CPU_LAYERS} layers at full "
-        f"width (batch 1, seq {TRAIN_CPU_SEQ}, float32 compute, remat): loss {out['card'][0]!r} "
+    log(f"{tag} card vs CPU gradients, {cfg.name} cut to {cfg.n_layers} layers at full "
+        f"width (batch 1, seq {seq}, float32 compute, remat): loss {out['card'][0]!r} "
         f"vs {out['cpu'][0]!r} (relative {rel_loss:.3e}, limit 1e-4); the worst of "
         f"{len(out['cpu'][1])} gradient leaves {worst:.3f} x the limit (1e-3 max|g_cpu| + 1e-6) "
         f"at {worst_leaf}")
     if not (rel_loss <= 1e-4 and worst <= 1.0):
         raise AssertionError(f"card and CPU gradients differ: loss {rel_loss:.3e}, leaf {worst}")
-    return {"rel_loss": rel_loss, "grad_excess": worst}
+    return {"rel_loss": rel_loss, "grad_excess": worst, "worst_leaf": worst_leaf}
 
 
 def phase_train(device) -> dict:
@@ -2761,7 +2788,9 @@ def phase_train(device) -> dict:
         raise AssertionError(f"the fixed batch's loss did not fall: {lf[1]} -> {lf[steps]}")
     del fixed
     _free()
-    check = _train_grads_cpu_check(device)
+    check = _grads_cpu_check(device, _train_cfg(n_layers=TRAIN_CPU_LAYERS,
+                                                compute_dtype="float32"),
+                             TRAIN_CPU_SEQ, "[train]")
     _free()
     return {"batch": batch, "launches": launches, "step_ms": step_s * 1e3,
             "tokens_per_s": tokens / step_s, "peak_gib": peak / 2 ** 30, "mfu": mfu,
@@ -3150,6 +3179,245 @@ def phase_tools(device) -> dict:
     if execute_tiles.launches != len(KERNEL_CASES):
         raise AssertionError(f"{execute_tiles.launches} launches for {len(KERNEL_CASES)} calls")
     return {"traced": traced, "worst": worst}
+
+
+# -- slice 13: the examples ------------------------------------------------------
+
+
+class _Example:
+    """``python -m repro_torch.examples.<name> *argv`` started as a child
+    with no ``--device`` (so on the card), its output in ``out_dir``."""
+
+    def __init__(self, name: str, argv=(), *, out_dir: Path, tag: str | None = None):
+        self.name, self.argv, self.tag = name, list(argv), tag or name
+        self.out, self.err = out_dir / f"{self.tag}.out", out_dir / f"{self.tag}.err"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.t0 = time.perf_counter()
+        with open(self.out, "w") as fo, open(self.err, "w") as fe:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}", *self.argv],
+                stdout=fo, stderr=fe, env=env, cwd=str(ROOT))
+        self.t1 = None  # set by the waiter when the child exits
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self) -> None:
+        self.proc.wait()
+        self.t1 = time.perf_counter()
+
+    def finish(self, timeout: float = 600) -> tuple[str, float]:
+        """Wait; the exit code must be 0 and the last line ``OK``.  Returns
+        the standard output and the child's wall seconds."""
+        self._waiter.join(timeout=max(0.0, self.t0 + timeout - time.perf_counter()))
+        self.kill()
+        code = self.proc.returncode
+        wall = (self.t1 or time.perf_counter()) - self.t0
+        text = self.out.read_text()
+        if code != 0 or text.rstrip().splitlines()[-1:] != ["OK"]:
+            raise AssertionError(f"example {self.name} {' '.join(self.argv)}: exit {code}, last "
+                                 f"lines:\n{text[-2000:]}\n{self.err.read_text()[-4000:]}")
+        return text, wall
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _stencil_launches(name: str, text: str) -> tuple[int, int]:
+    """An example's ``stencil_tiles launches: L (T tiles in W waves)`` line:
+    L and W, which must be equal."""
+    m = re.search(r"^stencil_tiles launches: (\d+) \((\d+) tiles in (\d+) waves\)$", text, re.M)
+    if m is None:
+        raise AssertionError(f"example {name} printed no launch line:\n{text[-2000:]}")
+    launches, waves = int(m.group(1)), int(m.group(3))
+    if launches != waves or waves == 0:
+        raise AssertionError(f"example {name}: {launches} stencil_tiles launches for {waves} "
+                             f"waves")
+    return launches, waves
+
+
+def _train_lm_log(text: str) -> dict:
+    """``train_lm``'s output: its logged losses by step, and the first and
+    last step of its summary line."""
+    losses = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^step\s+(\d+)\s+loss (\S+)\s+lr \S+\s+\S+s$", text, re.M)}
+    m = re.search(r"^steps (\d+)-(\d+) on ", text, re.M)
+    if m is None or not losses:
+        raise AssertionError(f"train_lm printed no losses or no summary:\n{text[-2000:]}")
+    return {"losses": losses, "start": int(m.group(1)) - 1, "end": int(m.group(2))}
+
+
+def _ckpt_leaves(ckpt_dir: Path, step: int) -> dict:
+    with np.load(ckpt_dir / f"step_{step:010d}" / "leaves.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def _preempt_after_first_checkpoint(child: _Example, ckpt: Path, timeout: float = 600) -> None:
+    """Raise ``train_lm``'s ``PREEMPT`` sentinel as soon as its
+    step-``EXAMPLES_CKPT_EVERY`` checkpoint is committed (the trainer then
+    checkpoints the step it is in and exits)."""
+    committed = ckpt / f"step_{EXAMPLES_CKPT_EVERY:010d}" / "manifest.json"
+    while child.proc.poll() is None and not committed.exists():
+        if time.perf_counter() - child.t0 > timeout:
+            raise AssertionError(f"train_lm wrote no step-{EXAMPLES_CKPT_EVERY} checkpoint in "
+                                 f"{timeout} s")
+        time.sleep(0.02)
+    (ckpt / "PREEMPT").touch()
+
+
+def phase_examples(device, smi: str) -> dict:
+    """Slice 13's examples as a user runs them: ``python -m
+    repro_torch.examples.<name>`` as a child with no ``--device`` (so on the
+    card), exit 0 and ``OK`` last.  ``quickstart``, ``stencil_pipeline``,
+    ``serve_decode`` and ``pipeline_parallel`` run side by side, beside
+    ``train_lm --steps EXAMPLES_TRAIN_STEPS`` (``CFG_100M``, batch 4 x 256)
+    stopped by its ``PREEMPT`` sentinel after its step-50 checkpoint and
+    then rerun with the same command.  ``quickstart`` and
+    ``stencil_pipeline`` launch ``stencil_tiles`` once per wave;
+    ``serve_decode`` (the launcher at ``--smoke``) ``decode_attention`` once
+    per attention layer per decode step; ``pipeline_parallel`` runs 4 gloo
+    ranks on the card.  Then, alone, the uninterrupted run through
+    ``train_lm.run`` in this process (its step time, tokens/s and peak
+    memory): the logged losses it shares with the preempted and resumed runs
+    and their last common checkpoint (every parameter and moment) must be
+    bit-equal.  Then one profiled ``CFG_100M`` step (device busy share) and
+    the card-vs-CPU gradients of its 2-layer cut (dense attention's backward
+    on CUDA)."""
+    import contextlib as _ctx
+    import io
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import train_lm
+    from repro_torch.models.lm import param_leaves
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import TrainHParams
+
+    cfg100 = train_lm.CFG_100M
+    steps = EXAMPLES_TRAIN_STEPS
+    root = Path(tempfile.mkdtemp(prefix="examples_", dir=ROOT / "build"))
+    straight_dir, resumed_dir = root / "straight", root / "resumed"
+    train_argv = ["--steps", str(steps), "--ckpt-dir", str(resumed_dir)]
+    side = [_Example(name, out_dir=root) for name in
+            ("quickstart", "stencil_pipeline", "serve_decode", "pipeline_parallel")]
+    preempted = _Example("train_lm", train_argv, out_dir=root, tag="train_lm_preempted")
+    children = [*side, preempted]
+    try:
+        _preempt_after_first_checkpoint(preempted, resumed_dir)
+        first_text, wall_first = preempted.finish()
+        (resumed_dir / "PREEMPT").unlink()
+        rerun = _Example("train_lm", train_argv, out_dir=root, tag="train_lm_rerun")
+        children.append(rerun)
+        second_text, wall_second = rerun.finish()
+        done = {child.name: child.finish() for child in side}
+    finally:
+        for child in children:
+            child.kill()
+    walls = {name: wall for name, (_, wall) in done.items()}
+    launches = {}
+    for name in ("quickstart", "stencil_pipeline"):
+        text = done[name][0]
+        launches[name], waves = _stencil_launches(name, text)
+        log(f"[examples] python -m repro_torch.examples.{name}: exit 0, OK, {walls[name]:.1f} s; "
+            f"stencil_tiles launches {launches[name]} = waves {waves}; "
+            + "; ".join(line.strip() for line in text.splitlines()
+                        if "bit-exact" in line or "oracle" in line or "(AXI)" in line))
+    text = done["serve_decode"][0]
+    m = re.search(r"^kernel launches: decode_attention (\d+), ssd_scan (\d+) \((\d+) decode "
+                  r"steps\)$", text, re.M)
+    n_attn = _self_attention_layers(get_smoke_config("qwen3-0.6b"))
+    if m is None or int(m.group(1)) != n_attn * int(m.group(3)) or int(m.group(2)) != 0:
+        raise AssertionError(f"serve_decode's launches: {m and m.group(0)}, want "
+                             f"decode_attention = {n_attn} layers x decode steps")
+    launches["serve_decode"] = int(m.group(1))
+    log(f"[examples] python -m repro_torch.examples.serve_decode: exit 0, OK, "
+        f"{walls['serve_decode']:.1f} s; {m.group(0)} (= {n_attn} attention layers of the "
+        f"qwen3-0.6b SMOKE config x {m.group(3)}); "
+        + "; ".join(line.strip() for line in text.splitlines()
+                    if line.startswith(("qwen3", "decode:"))))
+    text = done["pipeline_parallel"][0]
+    m = re.search(r"err=(\S+), bubble fraction \(S-1\)/\(M\+S-1\) = 3/11", text)
+    if m is None or not float(m.group(1)) < 1e-5:
+        raise AssertionError(f"pipeline_parallel: {text[-2000:]}")
+    log(f"[examples] python -m repro_torch.examples.pipeline_parallel (4 gloo ranks on the "
+        f"card, staged through the host): exit 0, OK, {walls['pipeline_parallel']:.1f} s; "
+        f"err {m.group(1)} (< 1e-5), bubble 3/11; the four side examples' walls are taken "
+        f"side by side with each other and with train_lm's two runs")
+    first, second = _train_lm_log(first_text), _train_lm_log(second_text)
+    log(f"[examples] python -m repro_torch.examples.train_lm {' '.join(train_argv)}: stopped "
+        f"by the PREEMPT sentinel after its step-{EXAMPLES_CKPT_EVERY} checkpoint, steps "
+        f"1-{first['end']} ({wall_first:.1f} s); the same command again resumed at step "
+        f"{second['start']} and ran steps {second['start'] + 1}-{second['end']} "
+        f"({wall_second:.1f} s)")
+    # the uninterrupted run, alone on the card: train_lm.run in this process
+    _free()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with _ctx.redirect_stdout(out):
+        straight = train_lm.run(cfg100, steps=steps, batch=4, seq=256,
+                                ckpt_dir=str(straight_dir), device=device)
+    wall_straight = time.perf_counter() - t0
+    want = {m_["step"]: m_["loss"] for m_ in straight["log"]}
+    got = {**first["losses"], **second["losses"]}
+    shared = sorted(set(want) & set(got))
+    bit = bool(shared) and all(got[k] == want[k] for k in shared)
+    rel = max((abs(got[k] - want[k]) / abs(want[k]) for k in shared), default=float("nan"))
+    common = [k for k in range(EXAMPLES_CKPT_EVERY, steps + 1, EXAMPLES_CKPT_EVERY)
+              if k > first["end"]]
+    if not common:
+        raise AssertionError(f"the preempted run stopped at step {first['end']}: no checkpoint "
+                             f"of the uninterrupted {steps} steps comes after it")
+    a, b = _ckpt_leaves(straight_dir, common[-1]), _ckpt_leaves(resumed_dir, common[-1])
+    same_ckpt = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    del a, b
+    dts = [m_["dt"] for m_ in straight["log"][1:]]
+    step_s = straight["wall_s"] / steps
+    tokens = 4 * 256
+    log(f"[examples] train_lm.run (the uninterrupted run, in this process, alone on the card; "
+        f"CFG_100M: {cfg100.n_layers} layers, d_model {cfg100.d_model}, {cfg100.n_heads} heads, "
+        f"{cfg100.n_kv_heads} KV heads, d_ff {cfg100.d_ff}, vocab {cfg100.vocab}; batch 4 x "
+        f"256, AdamW, remat, bf16 compute): steps 1-{straight['end']} in "
+        f"{straight['wall_s']:.3f} s ({wall_straight:.1f} s with the model's set-up), "
+        f"{step_s * 1e3:.3f} ms/step and {tokens / step_s:.1f} tokens/s with the checkpoints "
+        f"every {EXAMPLES_CKPT_EVERY}; median logged step {statistics.median(dts) * 1e3:.3f} ms "
+        f"({tokens / statistics.median(dts):.1f} tokens/s); peak max_memory_allocated "
+        f"{straight['peak_bytes'] / 2 ** 30:.3f} GiB; card: {smi}")
+    log(f"[examples] resumed against uninterrupted: {len(shared)} logged losses shared "
+        f"(steps {shared[0] if shared else '-'}-{shared[-1] if shared else '-'}): bit-equal "
+        f"{bit}, max relative difference {rel:.3e}; the step-{common[-1]} checkpoints (every "
+        f"parameter and moment) bit-equal {same_ckpt}")
+    if not (first["start"] == 0 and first["end"] >= EXAMPLES_CKPT_EVERY
+            and second["start"] == first["end"] and second["end"] == first["end"] + steps
+            and bit and same_ckpt and all(math.isfinite(v) for v in got.values())):
+        raise AssertionError("train_lm's resumed run differs from the uninterrupted run")
+    # one profiled step of CFG_100M in this process (no checkpoints), after warm-up
+    _free()
+    hp = TrainHParams(peak_lr=3e-4, warmup=20, total_steps=steps, remat=True)
+    trainer = Trainer(cfg100, batch=4, seq=256, ckpt_dir=root / "profile", hp=hp,
+                      ckpt_every=10 ** 9, device=device)
+    trainer.run(3, log_every=1)
+    batch_t = {"tokens": torch.as_tensor(trainer.data.batch_at(3)["tokens"], device=device)}
+    prof = _profile_step(trainer, batch_t, tag="[examples]")
+    trainer.data.close()
+    n_params = sum(p.numel() for leaf in param_leaves(trainer.model) for p in leaf.parts
+                   if leaf.path[0] != "embed")
+    del trainer
+    flops = 8 * n_params * tokens
+    med = statistics.median(dts)
+    log(f"[examples] CFG_100M model FLOPs 8 N tokens with remat, N = {n_params} non-embedding "
+        f"parameters: {flops / 1e12:.4f} TFLOP per step, {flops / med / PEAK_BF16_TC_FLOPS:.3%} "
+        f"of 989 TFLOP/s at the median step")
+    _free()
+    check = _grads_cpu_check(device, dataclasses.replace(
+        cfg100, n_layers=EXAMPLES_CPU_LAYERS, compute_dtype="float32"), EXAMPLES_CPU_SEQ,
+        "[examples]")
+    _free()
+    return {"walls": walls, "launches": launches, "step_ms": step_s * 1e3,
+            "median_step_ms": med * 1e3, "peak_gib": straight["peak_bytes"] / 2 ** 30,
+            "first_end": first["end"], "bit": bit, "common": common[-1],
+            "busy": None if prof is None else prof["busy_s"] / prof["wall_s"], "flops": flops,
+            **check}
 
 
 def phase_dryrun_start() -> list:
@@ -3562,6 +3830,8 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    # after the dry run's children: train_lm's host-bound steps get the host's cores
+    examples_run = phase_examples(device, smi)
     rows = phase_timing(device, main_run, irr_run)
     fetch_row = phase_fetch_timing(irr_run)
     sharded_rows = phase_sharded_timing(device, main_run, irr_run, fetch_row,
@@ -3651,6 +3921,12 @@ def main() -> int:
         f"(cfa_trace --backend cuda, one per wave), 0 (--backend dataflow: the plain version), "
         f"{len(KERNEL_CASES)} (stencil_tile_op); [pipeline] and [dryrun] launch no kernel of "
         f"the port (dense blocks; meta tensors)")
+    w = examples_run["launches"]
+    log(f"[done] launches over [examples] (each in its own process): stencil_tiles "
+        f"{w['quickstart']} (quickstart) and {w['stencil_pipeline']} "
+        f"(stencil_pipeline), one per wave; decode_attention {w['serve_decode']} "
+        f"(serve_decode); train_lm and pipeline_parallel launch no kernel of the port (dense "
+        f"attention's eager forward and backward; tanh(h @ w))")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

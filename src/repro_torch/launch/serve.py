@@ -11,7 +11,9 @@ the VLM and encoder-decoder families, the context embeddings the stub
 frontend would give (``normal(size=(batch, n_context_tokens, d_model)) *
 0.02`` in bfloat16, as the reference draws them), which ``lm_prefill``
 takes as ``cross_src``; temperature sampling draws from its own seeded
-``torch.Generator``.
+``torch.Generator``.  The last line counts the kernel launches of the
+run (``decode_attention`` once per self-attention layer per decode step on
+the card; ``ssd_scan`` once per Mamba layer per prefill; none on the CPU).
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.cfa.api import resolve_device
+from repro_torch.kernels.block_attention import decode_attention
+from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.models.lm import init_lm, lm_decode, lm_prefill
 
 
@@ -73,6 +77,7 @@ def main(argv: list[str] | None = None) -> dict:
             lv = torch.where(lv < kth, float("-inf"), lv)
         return torch.multinomial(torch.softmax(lv, -1), 1, generator=sampler)[:, 0]
 
+    launched = (decode_attention.launches, ssd_scan.launches)
     t0 = time.perf_counter()
     logits, caches = lm_prefill(model, prompts, cross_src=ctx, max_seq=max_seq)
     _sync(device)
@@ -88,6 +93,8 @@ def main(argv: list[str] | None = None) -> dict:
     t2 = time.perf_counter()
 
     gen = torch.stack(out_tokens, 1).cpu().numpy()
+    launches = {"decode_attention": decode_attention.launches - launched[0],
+                "ssd_scan": ssd_scan.launches - launched[1]}
     print(f"{cfg.name} on {device}: prefill {args.batch}x{args.prompt_len} tokens in "
           f"{t1 - t0:.2f}s")
     print(f"decode: {args.batch}x{args.gen} tokens in {t2 - t1:.2f}s "
@@ -95,7 +102,9 @@ def main(argv: list[str] | None = None) -> dict:
     print("sample generations (token ids):")
     for row in gen[:2]:
         print(" ", row[:16].tolist())
-    return {"tokens": gen, "prefill_s": t1 - t0, "decode_s": t2 - t1}
+    print(f"kernel launches: decode_attention {launches['decode_attention']}, ssd_scan "
+          f"{launches['ssd_scan']} ({args.gen - 1} decode steps)")
+    return {"tokens": gen, "prefill_s": t1 - t0, "decode_s": t2 - t1, "launches": launches}
 
 
 if __name__ == "__main__":

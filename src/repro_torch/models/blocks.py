@@ -58,9 +58,10 @@ class Block(nn.Module):
     ``dec``: + ``norm_x`` and the ``cross`` attention), then ``norm2`` + FFN
     unless the FFN kind is ``none``."""
 
-    def __init__(self, kind: str, fk: str, cfg: ArchConfig, *, device=None, generator=None,
+    def __init__(self, kind: str, fk: str, cfg: ArchConfig, *, device="cuda", generator=None,
                  dtype=None):
         super().__init__()
+        device = resolve_device(device)
         if kind not in _KINDS:
             raise ValueError(kind)
         self.kind, self.fk, self.cfg = kind, fk, cfg
@@ -80,10 +81,11 @@ class Block(nn.Module):
 
 
 def init_position(kind: str, fk: str, cfg: ArchConfig, *, generator=None,
-                  device=None, dtype=None) -> Block:
+                  device="cuda", dtype=None) -> Block:
     """One layer (the reference's ``init_position``): weights drawn from
     ``generator``, or zeros to be loaded when it is None; matrices in
-    ``dtype`` (default: the compute dtype)."""
+    ``dtype`` (default: the compute dtype); on ``device``, the CUDA device
+    unless the caller asks for the CPU (a missing card raises)."""
     return Block(kind, fk, cfg, device=device, generator=generator, dtype=dtype)
 
 

@@ -139,8 +139,9 @@ class Attention(nn.Module):
     wo (Hq, Dh, d) in ``dtype`` (default: the compute dtype); q/k norm
     scales (Dh,) in float32 when the configuration has ``qk_norm``."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
+    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         d, hq, hkv, dh = cfg.d_model, cfg.padded_q_heads, cfg.stored_kv_heads, cfg.head_dim
         cd = dtype or _cd(cfg)
@@ -362,9 +363,10 @@ class MLP(nn.Module):
     """SwiGLU weights w1/w3 (d, f) and w2 (f, d) in ``dtype`` (default: the
     compute dtype)."""
 
-    def __init__(self, cfg: ArchConfig, d_ff: int | None = None, *, device=None,
+    def __init__(self, cfg: ArchConfig, d_ff: int | None = None, *, device="cuda",
                  generator=None, dtype=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         d, f = cfg.d_model, d_ff or cfg.d_ff
         cd = dtype or _cd(cfg)
@@ -402,8 +404,9 @@ class Embedding(nn.Module):
     """Token table (padded_vocab, d) and output head (d, padded_vocab) in
     ``dtype`` (default: the compute dtype)."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
+    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         vp, d = cfg.padded_vocab, cfg.d_model
         cd = dtype or _cd(cfg)

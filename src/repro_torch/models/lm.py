@@ -68,8 +68,9 @@ __all__ = ["LM", "Encoder", "ParamLeaf", "param_leaves", "init_lm", "spec_lm", "
 class Encoder(nn.Module):
     """``enc_layers`` attention + MLP blocks and a final norm."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
+    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.layers = nn.ModuleList(
             init_position("attn", "mlp", cfg, device=device, generator=generator, dtype=dtype)

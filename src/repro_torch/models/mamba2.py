@@ -59,8 +59,9 @@ class Mamba2(nn.Module):
     (default: the compute dtype); ``dt_bias``, ``A_log``, ``D`` and the norm
     scale in float32."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
+    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         d, din, n, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
         K = cfg.ssm_conv

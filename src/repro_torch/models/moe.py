@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cfa.api import resolve_device
 from repro_torch.distributed.sharding import P
 
 from .config import ArchConfig
@@ -43,8 +44,9 @@ class MoE(nn.Module):
     """Router (d, E) in float32; expert weights w1/w3 (E, d, f) and w2
     (E, f, d) in ``dtype`` (default: the compute dtype)."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None, generator=None, dtype=None):
+    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.moe_experts
         cd = dtype or _cd(cfg)
@@ -62,9 +64,10 @@ class MoE(nn.Module):
 
 
 def init_moe(cfg: ArchConfig, *, generator: torch.Generator | None = None,
-             device=None, dtype=None) -> MoE:
+             device="cuda", dtype=None) -> MoE:
     """An MoE layer (the reference's ``init_moe``): weights drawn from
-    ``generator``, or zeros to be loaded when it is None."""
+    ``generator``, or zeros to be loaded when it is None; on ``device``, the
+    CUDA device unless the caller asks for the CPU (a missing card raises)."""
     return MoE(cfg, device=device, generator=generator, dtype=dtype)
 
 

@@ -66,6 +66,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.interop import lm_from_numpy
 from repro_torch.models import layers as tl
 from repro_torch.models import mamba2 as tm
+from repro_torch.models import blocks as tb
 from repro_torch.models import lm as tlm
 from repro_torch.models.lm import LM, init_caches, init_lm, lm_decode, lm_forward, lm_prefill
 
@@ -543,3 +544,22 @@ def test_cache_constructors_default_to_the_card():
         cache = call(device="cpu")
         for c in cache.values() if isinstance(cache, dict) else [cache]:
             assert all(getattr(c, f.name).device.type == "cpu" for f in dataclasses.fields(c))
+
+
+@pytest.mark.parametrize("make", [
+    lambda cfg, **kw: tl.Attention(cfg, **kw),
+    lambda cfg, **kw: tl.MLP(cfg, **kw),
+    lambda cfg, **kw: tl.Embedding(cfg, **kw),
+    lambda cfg, **kw: tm.Mamba2(cfg, **kw),
+    lambda cfg, **kw: tb.Block("attn", "mlp", cfg, **kw),
+    lambda cfg, **kw: tb.init_position("mamba", "none", cfg, **kw),
+    lambda cfg, **kw: tlm.Encoder(cfg, **kw),
+], ids=["Attention", "MLP", "Embedding", "Mamba2", "Block", "init_position", "Encoder"])
+def test_module_constructors_default_to_the_card(make):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    cfg = get_smoke_config("seamless-m4t-large-v2")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        make(cfg)
+    for device in ("cpu", "meta"):
+        assert all(p.device.type == device for p in make(cfg, device=device).parameters())

@@ -173,3 +173,14 @@ def test_init_moe_draws_the_reference_shapes_and_scales(arch):
         assert abs(float(p.float().std()) - scale) < 0.1 * scale, (name, float(p.float().std()))
     empty = tm.init_moe(tcfg, device="cpu")  # no generator: zeros, to be loaded
     assert not any(p.any() for p in empty.parameters())
+
+
+def test_init_moe_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    tcfg = get_smoke_config("olmoe-1b-7b")
+    for call in (lambda: tm.init_moe(tcfg), lambda: tm.MoE(tcfg)):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            call()
+    shapes = tm.init_moe(tcfg, device="meta")  # a dry run's shapes: nothing drawn
+    assert all(p.device.type == "meta" for p in shapes.parameters())
