@@ -237,9 +237,9 @@ result line unless every phase passed):
                uninterrupted 8-step ``Trainer`` run from the same seed must
                give the resumed run's losses at steps 5-8 (bit-equal, or
                within 1e-5 relative); a fixed batch's step-8 loss below its
-               step-1 loss; printed: median step ms, tokens/s, peak memory,
-               the device's busy share over a profiled step and the model
-               FLOPs (8 N tokens with remat) against 989 TFLOP/s; then card
+               step-1 loss; printed: median step ms, tokens/s, peak memory
+               and the device's busy share over a profiled step (the step's
+               MFU is the benchmark's ``train_step_mfu_pct``); then card
                vs CPU gradients on a full-width 2-layer cut (batch 1, seq
                512, float32 compute, weights copied): every leaf within
                1e-3 max|g_cpu| + 1e-6, the loss within 1e-4 relative;
@@ -300,7 +300,7 @@ result line unless every phase passed):
                (``train_lm.run`` in this process): the logged losses it shares
                with the other two runs and their last common checkpoint
                bit-equal; printed: ms/step, tokens/s, peak memory; then one
-               profiled ``CFG_100M`` step (device busy share, model FLOPs) and
+               profiled ``CFG_100M`` step (device busy share) and
                card vs CPU gradients on its 2-layer cut (batch 1, seq 256,
                float32 compute): every leaf within 1e-3 max|g_cpu| + 1e-6, the
                loss within 1e-4 relative — dense attention's backward on the
@@ -2667,7 +2667,6 @@ def phase_train(device) -> dict:
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels.ssd import ssd_scan, ssd_scan_bwd
     from repro_torch.launch import train as launch_train
-    from repro_torch.models.lm import param_leaves
     from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import TrainHParams
 
@@ -2758,14 +2757,9 @@ def phase_train(device) -> dict:
     batch_t = {"tokens": torch.as_tensor(straight.data.batch_at(steps)["tokens"],
                                          device=device)}
     prof = _profile_step(straight, batch_t)
-    n_params = sum(p.numel() for leaf in param_leaves(straight.model) for p in leaf.parts
-                   if leaf.path[0] != "embed")
-    mfu = 8 * n_params * tokens / step_s / PEAK_BF16_TC_FLOPS
     log(f"[train] median step {step_s * 1e3:.3f} ms over steps 2-{steps} of the uninterrupted "
         f"run ({tokens / step_s:.1f} tokens/s); peak memory {peak / 2 ** 30:.3f} GiB "
-        f"(max_memory_allocated over the launcher's runs); model FLOPs 8 N tokens with remat, "
-        f"N = {n_params} non-embedding parameters: {8 * n_params * tokens / 1e12:.3f} TFLOP per "
-        f"step, {mfu:.2%} of the bf16 tensor-core peak 989 TFLOP/s")
+        f"(max_memory_allocated over the launcher's runs)")
     del straight, resumed, second
     _free()
     # a fixed batch the model can learn
@@ -2793,7 +2787,7 @@ def phase_train(device) -> dict:
                              TRAIN_CPU_SEQ, "[train]")
     _free()
     return {"batch": batch, "launches": launches, "step_ms": step_s * 1e3,
-            "tokens_per_s": tokens / step_s, "peak_gib": peak / 2 ** 30, "mfu": mfu,
+            "tokens_per_s": tokens / step_s, "peak_gib": peak / 2 ** 30,
             "busy": None if prof is None else prof["busy_s"] / prof["wall_s"], **check}
 
 
@@ -3290,7 +3284,6 @@ def phase_examples(device, smi: str) -> dict:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.examples import train_lm
-    from repro_torch.models.lm import param_leaves
     from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import TrainHParams
 
@@ -3400,14 +3393,8 @@ def phase_examples(device, smi: str) -> dict:
     batch_t = {"tokens": torch.as_tensor(trainer.data.batch_at(3)["tokens"], device=device)}
     prof = _profile_step(trainer, batch_t, tag="[examples]")
     trainer.data.close()
-    n_params = sum(p.numel() for leaf in param_leaves(trainer.model) for p in leaf.parts
-                   if leaf.path[0] != "embed")
     del trainer
-    flops = 8 * n_params * tokens
     med = statistics.median(dts)
-    log(f"[examples] CFG_100M model FLOPs 8 N tokens with remat, N = {n_params} non-embedding "
-        f"parameters: {flops / 1e12:.4f} TFLOP per step, {flops / med / PEAK_BF16_TC_FLOPS:.3%} "
-        f"of 989 TFLOP/s at the median step")
     _free()
     check = _grads_cpu_check(device, dataclasses.replace(
         cfg100, n_layers=EXAMPLES_CPU_LAYERS, compute_dtype="float32"), EXAMPLES_CPU_SEQ,
@@ -3416,8 +3403,7 @@ def phase_examples(device, smi: str) -> dict:
     return {"walls": walls, "launches": launches, "step_ms": step_s * 1e3,
             "median_step_ms": med * 1e3, "peak_gib": straight["peak_bytes"] / 2 ** 30,
             "first_end": first["end"], "bit": bit, "common": common[-1],
-            "busy": None if prof is None else prof["busy_s"] / prof["wall_s"], "flops": flops,
-            **check}
+            "busy": None if prof is None else prof["busy_s"] / prof["wall_s"], **check}
 
 
 def phase_dryrun_start() -> list:

@@ -29,6 +29,14 @@ attributable timeline:
   ``REPRO_TIMING_TESTS``) — one home for every wall-clock fidelity knob;
   ``calibrate.measure_runs`` / ``measure_plan`` emit their timed passes
   as spans through the same recorder.
+* Training spans (``cat="train"``): ``train.step`` and its phases from
+  ``train/loop.py`` and ``train/steps.py``, ``moe.dispatch`` /
+  ``moe.combine`` from ``models/moe.py``, written to the process-wide
+  recorder that ``with rec.installed():`` sets and :func:`active` returns.
+  Each span keeps the native id of the thread that opened it and the span
+  open on that thread when it began, and :meth:`TraceRecorder.unix_us`
+  puts it on the Unix clock of ``torch.profiler``'s Chrome trace, so
+  device work can be put down to the phase that issued it.
 * :class:`RuntimeReport` / :func:`runtime_report` — measured-vs-modeled
   attribution: per-facet / per-port observed time against
   ``BurstModel.time``, worst offender first, each row carrying the same
@@ -37,7 +45,8 @@ attributable timeline:
 
 Tracing is strictly opt-in: with no recorder attached the executors pay
 one ``is None`` check per phase — no recorder, span or context-manager
-allocation on the hot path.
+allocation on the hot path.  A training span site likewise pays one
+``is None`` check on :func:`active`'s result (:func:`train_span`).
 
 Spans are host-clock spans.  On a CUDA device PyTorch returns before the
 device finishes, so a span around a phase times its *enqueue*, not the
@@ -50,12 +59,15 @@ rows do read the device.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
+import threading
 import time
 from pathlib import Path
 from typing import Any, Iterable, Mapping
@@ -64,6 +76,9 @@ __all__ = [
     "Span",
     "Counters",
     "TraceRecorder",
+    "active",
+    "train_span",
+    "NO_SPAN",
     "RuntimeReport",
     "runtime_report",
     "chrome_trace",
@@ -179,7 +194,7 @@ def measurement_noise(device: "torch.device | str" = "cuda") -> float:
 # --------------------------------------------------------------------------
 
 #: span categories (the Chrome trace event ``cat`` field)
-SPAN_CATS = ("compile", "runtime", "measure", "serve")
+SPAN_CATS = ("compile", "runtime", "measure", "serve", "train")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +209,13 @@ class Span:
     recorder's epoch; compile spans folded from :class:`PassTrace`
     records sit on the negative side of the epoch.  ``args`` carries the
     structured payload (tile, wave, port, facet ids, burst/byte
-    accounting from the tile's :class:`TransferPlan`).
+    accounting from the tile's :class:`TransferPlan`).  ``tid`` is the
+    native id of the thread that recorded it (``threading.get_native_id()``,
+    the ``tid`` of ``torch.profiler``'s host events;
+    :attr:`TraceRecorder.threads` gives the pthread id, from which comes the
+    id that a profiler of the CUDA activity alone writes on a CUDA call),
+    ``sid`` its id in the recorder and ``parent`` the ``sid`` of the span
+    open on that thread when it began (-1: none).
     """
 
     name: str
@@ -203,6 +224,9 @@ class Span:
     t0: float
     dur: float
     args: tuple[tuple[str, Any], ...] = ()
+    tid: int = 0
+    sid: int = -1
+    parent: int = -1
 
     def __post_init__(self) -> None:
         if self.cat not in SPAN_CATS:
@@ -215,7 +239,8 @@ class Span:
 
     def to_dict(self) -> dict:
         return {"name": self.name, "cat": self.cat, "track": self.track,
-                "t0": self.t0, "dur": self.dur, "args": dict(self.args)}
+                "t0": self.t0, "dur": self.dur, "args": dict(self.args),
+                "tid": self.tid, "sid": self.sid, "parent": self.parent}
 
 
 class Counters:
@@ -254,9 +279,10 @@ class TraceRecorder:
     Attach one to a :class:`~repro_torch.core.cfa.transform.CFAPipeline` (the
     ``recorder`` field) and every executor phase records itself; or pass
     one to ``calibrate.measure_runs`` / ``ContinuousBatcher`` for the
-    measurement and serving paths.  ``cfa.compile(..., trace=True)``
-    wires all of this up and surfaces the recorder as
-    ``CompiledStencil.last_trace()``.
+    measurement and serving paths, or to ``Trainer(recorder=...)``, which
+    installs it (:meth:`installed`) for the training path's span sites.
+    ``cfa.compile(..., trace=True)`` wires all of this up and surfaces the
+    recorder as ``CompiledStencil.last_trace()``.
 
     ``model`` (a :class:`BurstModel`) prices the byte counters; without
     one the recorder still collects spans and structural counters but no
@@ -273,14 +299,64 @@ class TraceRecorder:
         self.counters = Counters()
         self.counter_samples: list[tuple[float, str, float]] = []
         self.meta: dict[str, Any] = {}
-        self._open: dict[int, tuple[str, str, str, float, tuple]] = {}
-        self._next_token = 0
+        self._open: dict[int, tuple] = {}
+        self._ids = itertools.count()
+        #: per thread (native id), the ids of its open spans, innermost last
+        self._stacks: dict[int, list[int]] = {}
+        #: per thread that recorded a span, native id -> ``threading.get_ident()``
+        #: (the pthread id, from which CUPTI's thread id comes: a profiler
+        #: recording the CUDA activity alone writes that on a CUDA call)
+        self.threads: dict[int, int] = {}
+        #: (recorder time s, Unix clock us) pairs read together, in order
+        self._clock: list[tuple[float, float]] = []
         self._plan_cache: dict[tuple[int, ...], Any] = {}
+        self.mark_clock()
 
     # -- clock ------------------------------------------------------------
 
     def now(self) -> float:
         return now()
+
+    def mark_clock(self) -> None:
+        """Read the Unix clock and the recorder's clock together once more
+        (the trainer does so as each ``train.step`` opens), so that
+        :meth:`unix_us` follows the drift between the two."""
+        a = time.time_ns()
+        t = now()
+        b = time.time_ns()
+        self._clock.append((t - self.epoch, (a + b) / 2e3))
+
+    def unix_us(self, t: float) -> float:
+        """Recorder time ``t`` (seconds from the epoch, as a span's ``t0``)
+        in microseconds of the Unix clock: the clock of ``torch.profiler``'s
+        Chrome trace, whose events sit at ``ts`` + ``baseTimeNanoseconds``.
+        Converted by the last pair :meth:`mark_clock` read at or before
+        ``t``."""
+        i = max(0, bisect.bisect_right(self._clock, (t, math.inf)) - 1)
+        ref, unix = self._clock[i]
+        return unix + (t - ref) * 1e6
+
+    def _stack(self) -> tuple[int, list[int]]:
+        """The calling thread's native id and its stack of open spans."""
+        tid = threading.get_native_id()
+        stack = self._stacks.get(tid)
+        if stack is None:
+            stack = self._stacks[tid] = []
+            self.threads[tid] = threading.get_ident()
+        return tid, stack
+
+    # -- the process-wide recorder -----------------------------------------
+
+    @contextlib.contextmanager
+    def installed(self):
+        """Make this the recorder :func:`active` returns, in every thread,
+        until the block ends (the one before it again after)."""
+        global _ACTIVE
+        before, _ACTIVE = _ACTIVE, self
+        try:
+            yield self
+        finally:
+            _ACTIVE = before
 
     def track(self, phase: str) -> str:
         """The current port's lane for ``phase`` (fetch/compute/commit)."""
@@ -291,8 +367,10 @@ class TraceRecorder:
     def add_span(self, name: str, t0: float, t1: float, *, track: str,
                  cat: str = "runtime", **args: Any) -> Span:
         """Record a closed interval [t0, t1] (absolute clock readings)."""
+        tid, stack = self._stack()
         span = Span(name=name, cat=cat, track=track, t0=t0 - self.epoch,
-                    dur=max(0.0, t1 - t0), args=tuple(args.items()))
+                    dur=max(0.0, t1 - t0), args=tuple(args.items()), tid=tid,
+                    sid=next(self._ids), parent=stack[-1] if stack else -1)
         self.spans.append(span)
         return span
 
@@ -301,15 +379,23 @@ class TraceRecorder:
         """Open a span now; close it with :meth:`end`.  Open/close pairs
         are how the dataflow executor brackets a tile's in-flight compute
         (dispatch -> commit) across loop iterations."""
-        token = self._next_token
-        self._next_token += 1
-        self._open[token] = (name, track, cat, now(), tuple(args.items()))
+        token = next(self._ids)
+        tid, stack = self._stack()
+        self._open[token] = (name, track, cat, now(), tuple(args.items()), tid,
+                             stack[-1] if stack else -1)
+        stack.append(token)
         return token
 
     def end(self, token: int) -> Span:
-        name, track, cat, t0, args = self._open.pop(token)
+        name, track, cat, t0, args, tid, parent = self._open.pop(token)
+        stack = self._stacks[tid]
+        if stack[-1] == token:
+            stack.pop()
+        else:  # closed out of order (the dataflow executor's in-flight tiles)
+            stack.remove(token)
         span = Span(name=name, cat=cat, track=track, t0=t0 - self.epoch,
-                    dur=max(0.0, now() - t0), args=args)
+                    dur=max(0.0, now() - t0), args=args, tid=tid, sid=token,
+                    parent=parent)
         self.spans.append(span)
         return span
 
@@ -505,7 +591,9 @@ class TraceRecorder:
         lanes — the dataflow executor's fetch/compute/commit — render as
         parallel rows.  Timestamps are microseconds from the earliest
         span (compile spans included), counters ride in ``otherData``
-        plus per-sample ``"C"`` events.
+        plus per-sample ``"C"`` events; ``otherData.ts0_unix_us`` is that
+        time zero on the Unix clock (:meth:`unix_us`), to overlay the file
+        on a ``torch.profiler`` trace.
         """
         tracks: list[str] = []
         for s in self.spans:
@@ -539,6 +627,7 @@ class TraceRecorder:
                 "label": self.label,
                 "model": getattr(self.model, "name", None),
                 "counters": self.counters.as_dict(),
+                "ts0_unix_us": self.unix_us(t_min),
                 **self.meta,
             },
         }
@@ -548,6 +637,32 @@ class TraceRecorder:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(self.to_chrome(), indent=1))
         return path
+
+
+#: the recorder the program's training span sites write to (None: tracing
+#: off).  A plain module global and not a context variable: autograd runs a
+#: remat recompute (``moe``'s spans) on its own device thread, which
+#: inherits no context.
+_ACTIVE: TraceRecorder | None = None
+
+#: what a span site enters when no recorder is installed (reused: nothing
+#: is allocated)
+NO_SPAN = contextlib.nullcontext()
+
+
+def active() -> TraceRecorder | None:
+    """The recorder installed by :meth:`TraceRecorder.installed`, or None."""
+    return _ACTIVE
+
+
+def train_span(rec: TraceRecorder | None, name: str, step: int | None = None):
+    """``rec``'s span ``name`` on the ``train`` track (``step`` in its
+    args when given), or :data:`NO_SPAN` when ``rec`` is None."""
+    if rec is None:
+        return NO_SPAN
+    if step is None:
+        return rec.span(name, track="train", cat="train")
+    return rec.span(name, track="train", cat="train", step=step)
 
 
 def chrome_trace(recorder: TraceRecorder) -> dict:

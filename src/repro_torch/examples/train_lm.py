@@ -76,7 +76,7 @@ def run(cfg: ArchConfig = CFG_100M, *, steps: int = 300, batch: int = 4, seq: in
     finally:
         data.close()
     for m in log:
-        print(f"step {m['step']:4d}  loss {m['loss']!r}  lr {m['lr']:.2e}  {m['dt']:.3f}s")
+        print(f"step {m['step']:4d}  loss {m['loss']!r}  lr {m['lr']:.2e}  {m['dt']:.3f} s/step")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     n = tr.step - start
     print(f"steps {start + 1}-{tr.step} on {device} in {wall:.3f} s (host clock to a "

@@ -22,6 +22,12 @@ the global batch are kept: the group size comes from the global token
 count, each rank's tokens must make whole groups (else a group would span
 ranks, and the call raises), and the aux loss's two means are all-reduced,
 differentiably, before their product.
+
+Under an installed ``obs.TraceRecorder`` a call records ``moe.dispatch``
+(the routing, from the router's logits through the capacity loop to the
+expert buffers) and ``moe.combine`` (the combine product and the aux loss);
+the experts' three products lie between the two, in neither.  A remat
+recompute records them again, on the thread autograd runs it on.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cfa import obs
 from repro_torch.core.cfa.api import resolve_device
 from repro_torch.distributed.sharding import P
 
@@ -114,52 +121,55 @@ def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tens
     if n_dp > 1 and T % gs:
         raise ValueError(f"a rank's {T} tokens do not make whole routing groups of {gs} "
                          f"(the global batch's {T * n_dp}): a group would span ranks")
-    pad = (-T) % gs
-    xt = x.reshape(T, d)
-    if pad:
-        xt = F.pad(xt, (0, 0, 0, pad))
-    G = xt.shape[0] // gs
-    xg = xt.reshape(G, gs, d)
-    # padded tokens must not eat expert capacity
-    valid = (torch.arange(G * gs, device=x.device) < T).float().reshape(G, gs)
+    rec = obs.active()
+    with obs.train_span(rec, "moe.dispatch"):
+        pad = (-T) % gs
+        xt = x.reshape(T, d)
+        if pad:
+            xt = F.pad(xt, (0, 0, 0, pad))
+        G = xt.shape[0] // gs
+        xg = xt.reshape(G, gs, d)
+        # padded tokens must not eat expert capacity
+        valid = (torch.arange(G * gs, device=x.device) < T).float().reshape(G, gs)
 
-    logits = xg.float() @ m.router  # (G, gs, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_idx = top_k(probs, k)  # (G, gs, k)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+        logits = xg.float() @ m.router  # (G, gs, E)
+        probs = torch.softmax(logits, dim=-1)
+        top_w, top_idx = top_k(probs, k)  # (G, gs, k)
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
-    cap = max(1, int(gs * k * cfg.moe_capacity_factor / e))
-    cap = -(-cap // 4) * 4  # the reference pads capacity for lane alignment
-    slots = torch.arange(cap, device=x.device)
+        cap = max(1, int(gs * k * cfg.moe_capacity_factor / e))
+        cap = -(-cap // 4) * 4  # the reference pads capacity for lane alignment
+        slots = torch.arange(cap, device=x.device)
 
-    counts = torch.zeros((G, 1, e), device=x.device)
-    dispatch = combine = None
-    for j in range(k):  # k is small and static: unrolled priority assignment
-        oh = F.one_hot(top_idx[..., j], e).float() * valid[..., None]  # (G, gs, E)
-        pos = counts + torch.cumsum(oh, dim=1) - oh  # position if admitted
-        admitted = (pos < cap).float() * oh
-        counts = counts + oh.sum(dim=1, keepdim=True)
-        # one_hot(pos, cap) with a zero row for pos >= cap (over capacity)
-        slot = (pos.long()[..., None] == slots).float()  # (G, gs, E, C)
-        disp_j = admitted[..., None] * slot
-        comb_j = disp_j * top_w[..., j][..., None, None]
-        dispatch = disp_j if dispatch is None else dispatch + disp_j
-        combine = comb_j if combine is None else combine + comb_j
+        counts = torch.zeros((G, 1, e), device=x.device)
+        dispatch = combine = None
+        for j in range(k):  # k is small and static: unrolled priority assignment
+            oh = F.one_hot(top_idx[..., j], e).float() * valid[..., None]  # (G, gs, E)
+            pos = counts + torch.cumsum(oh, dim=1) - oh  # position if admitted
+            admitted = (pos < cap).float() * oh
+            counts = counts + oh.sum(dim=1, keepdim=True)
+            # one_hot(pos, cap) with a zero row for pos >= cap (over capacity)
+            slot = (pos.long()[..., None] == slots).float()  # (G, gs, E, C)
+            disp_j = admitted[..., None] * slot
+            comb_j = disp_j * top_w[..., j][..., None, None]
+            dispatch = disp_j if dispatch is None else dispatch + disp_j
+            combine = comb_j if combine is None else combine + comb_j
 
-    dispatch, combine = dispatch.to(cd), combine.to(cd)
-    # expert-facet buffers: one contiguous block of admitted tokens per expert
-    ein = torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cd))
+        dispatch, combine = dispatch.to(cd), combine.to(cd)
+        # expert-facet buffers: one contiguous block of admitted tokens per expert
+        ein = torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cd))
     h = silu(torch.einsum("gecd,edf->gecf", ein, m.w1.to(cd)))
     h = h * torch.einsum("gecd,edf->gecf", ein, m.w3.to(cd))
     eout = torch.einsum("gecf,efd->gecd", h, m.w2.to(cd))
-    out = torch.einsum("gsec,gecd->gsd", combine, eout)
-    out = out.reshape(G * gs, d)[:T].reshape(B, S, d)
+    with obs.train_span(rec, "moe.combine"):
+        out = torch.einsum("gsec,gecd->gsd", combine, eout)
+        out = out.reshape(G * gs, d)[:T].reshape(B, S, d)
 
-    # Switch-style load-balance loss: E * sum_e f_e * p_e
-    frac_tokens = F.one_hot(top_idx[..., 0], e).float().mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
-    if n_dp > 1:
-        frac_tokens = _mean_over(frac_tokens, dp_groups, n_dp)
-        frac_probs = _mean_over(frac_probs, dp_groups, n_dp)
-    aux = e * torch.sum(frac_tokens * frac_probs)
-    return out, aux
+        # Switch-style load-balance loss: E * sum_e f_e * p_e
+        frac_tokens = F.one_hot(top_idx[..., 0], e).float().mean(dim=(0, 1))
+        frac_probs = probs.mean(dim=(0, 1))
+        if n_dp > 1:
+            frac_tokens = _mean_over(frac_tokens, dp_groups, n_dp)
+            frac_probs = _mean_over(frac_probs, dp_groups, n_dp)
+        aux = e * torch.sum(frac_tokens * frac_probs)
+        return out, aux

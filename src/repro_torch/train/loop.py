@@ -25,6 +25,14 @@ step slices, and the loop runs under ``use_mesh(mesh)``.  Checkpoints are
 gathered whole and written by rank 0 (``CheckpointManager``), a restart
 restores them onto the current mesh's placements, and a preemption seen by
 any rank stops every rank after the same step.
+
+With ``recorder`` (an ``obs.TraceRecorder``), :meth:`Trainer.run` installs
+it for its duration and records ``train.step`` (args ``step``) with the
+children ``train.feed`` (the wait on the data pipeline), ``train.to_device``,
+``train.log`` (a log step's synchronizing reads), ``train.checkpoint`` and
+``train.preempt``; the step's own spans (``train/steps.py``) and the MoE's
+(``models/moe.py``) nest inside.  Without one a span site costs one ``is
+None`` check.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core.cfa import obs
 from repro_torch.core.cfa.api import resolve_device
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.distributed.sharding import use_mesh
@@ -49,8 +58,10 @@ __all__ = ["Trainer"]
 class Trainer:
     def __init__(self, cfg: ArchConfig, *, batch: int, seq: int,
                  ckpt_dir: str | Path, hp: TrainHParams | None = None,
-                 mesh=None, seed: int = 0, ckpt_every: int = 50, data=None, device="cuda"):
+                 mesh=None, seed: int = 0, ckpt_every: int = 50, data=None, device="cuda",
+                 recorder: obs.TraceRecorder | None = None):
         self.cfg = cfg
+        self.recorder = recorder
         self.hp = hp or TrainHParams()
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -112,24 +123,41 @@ class Trainer:
 
     def run(self, n_steps: int, *, log_every: int = 10,
             step_deadline_s: float | None = None) -> list[dict]:
-        with use_mesh(self.mesh):
+        """Train ``n_steps`` more steps (fewer if preempted); every
+        ``log_every`` steps and at the last, append the step's metrics to
+        ``metrics_log`` with ``dt``: the seconds per step since the previous
+        log of this call (since the call began, for its first), read after
+        the log's own reads, which wait for the device."""
+        rec = self.recorder
+        with use_mesh(self.mesh), (obs.NO_SPAN if rec is None else rec.installed()):
             end = self.step + n_steps
+            t_log, step_log = time.perf_counter(), self.step
             while self.step < end:
-                t0 = time.time()
-                batch = self.data.next(deadline_s=step_deadline_s)
-                batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-                _, self.opt_state, metrics = self.step_fn(self.model, self.opt_state, batch)
-                self.step += 1
-                if self.step % log_every == 0 or self.step == end:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m.update(step=self.step, dt=time.time() - t0,
-                             skipped_batches=self.data.stats["skipped"])
-                    self.metrics_log.append(m)
-                if self.step % self.ckpt_every == 0:
-                    self.ckpt.save(self.step, self.state())
-                if self._preempted():
-                    self.ckpt.save(self.step, self.state(), blocking=True)
-                    break
+                if rec is not None:
+                    rec.mark_clock()
+                with obs.train_span(rec, "train.step", step=self.step + 1):
+                    with obs.train_span(rec, "train.feed"):
+                        batch = self.data.next(deadline_s=step_deadline_s)
+                    with obs.train_span(rec, "train.to_device"):
+                        batch = {k: torch.as_tensor(v, device=self.device)
+                                 for k, v in batch.items()}
+                    _, self.opt_state, metrics = self.step_fn(self.model, self.opt_state, batch)
+                    self.step += 1
+                    if self.step % log_every == 0 or self.step == end:
+                        with obs.train_span(rec, "train.log"):
+                            m = {k: float(v) for k, v in metrics.items()}
+                        t = time.perf_counter()
+                        m.update(step=self.step, dt=(t - t_log) / (self.step - step_log),
+                                 skipped_batches=self.data.stats["skipped"])
+                        self.metrics_log.append(m)
+                        t_log, step_log = t, self.step
+                    if self.step % self.ckpt_every == 0:
+                        with obs.train_span(rec, "train.checkpoint"):
+                            self.ckpt.save(self.step, self.state())
+                    with obs.train_span(rec, "train.preempt"):
+                        if self._preempted():
+                            self.ckpt.save(self.step, self.state(), blocking=True)
+                            break
             self.ckpt.wait()
         return self.metrics_log
 

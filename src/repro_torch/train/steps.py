@@ -19,6 +19,12 @@ logged loss and ``ce`` are the means over the shards.  ``shard_grads``
 keeps each gradient on its parameter's placements (the reference's
 ``constrain_tree``: ZeRO); without it the gradients are replicated (the
 all-reduce's result) and the update gives the same numbers.
+
+Under an installed ``obs.TraceRecorder`` (``Trainer(recorder=...)``) the
+step records ``train.forward`` (``loss_fn`` whole) with its child
+``train.loss`` (the cross entropy from the logits), ``train.backward`` (the
+backward and the gradients' collection), ``train.clip`` and
+``train.optimizer`` (the learning rate and the update).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import math
 
 import torch
 
+from repro_torch.core.cfa import obs
 from repro_torch.distributed.compression import ef_compress, ef_init
 from repro_torch.distributed.sharding import P, batch_spec, constrain_tree, get_mesh, named
 from repro_torch.models.config import ArchConfig
@@ -60,23 +67,26 @@ def loss_fn(model: LM, batch: dict, cfg: ArchConfig, hp: TrainHParams, *, dp_gro
     reference's form: the padded vocab is an additive row of -1e30, the
     target is picked by a masked sum.  ``dp_groups``: see ``lm_forward``
     (the cross entropy is this rank's rows' mean)."""
-    tokens = batch["tokens"]  # (B, S)
-    logits, aux = lm_forward(model, tokens, cross_src=batch.get("context"),
-                             remat=hp.remat, remat_policy=hp.policy(), dp_groups=dp_groups)
-    tokens = torch.as_tensor(tokens, device=logits.device)
-    lf = logits[:, :-1]
-    targets = tokens[:, 1:]
-    vp = cfg.padded_vocab
-    vocab_ids = torch.arange(vp, device=lf.device)[None, None, :]
-    pad_mask = torch.where(vocab_ids >= cfg.vocab, -1e30, 0.0).to(torch.float32)
-    lf = lf.to(torch.float32) + pad_mask
-    m = lf.amax(dim=-1, keepdim=True).detach()
-    shifted = lf - m
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
-    picked = torch.sum(torch.where(vocab_ids == targets[..., None], shifted, 0.0),
-                       dim=-1) + m[..., 0]
-    ce = (lse - picked).mean()
-    return ce + hp.aux_coef * aux, {"ce": ce, "aux": aux}
+    rec = obs.active()
+    with obs.train_span(rec, "train.forward"):
+        tokens = batch["tokens"]  # (B, S)
+        logits, aux = lm_forward(model, tokens, cross_src=batch.get("context"),
+                                 remat=hp.remat, remat_policy=hp.policy(), dp_groups=dp_groups)
+        with obs.train_span(rec, "train.loss"):
+            tokens = torch.as_tensor(tokens, device=logits.device)
+            lf = logits[:, :-1]
+            targets = tokens[:, 1:]
+            vp = cfg.padded_vocab
+            vocab_ids = torch.arange(vp, device=lf.device)[None, None, :]
+            pad_mask = torch.where(vocab_ids >= cfg.vocab, -1e30, 0.0).to(torch.float32)
+            lf = lf.to(torch.float32) + pad_mask
+            m = lf.amax(dim=-1, keepdim=True).detach()
+            shifted = lf - m
+            lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+            picked = torch.sum(torch.where(vocab_ids == targets[..., None], shifted, 0.0),
+                               dim=-1) + m[..., 0]
+            ce = (lse - picked).mean()
+            return ce + hp.aux_coef * aux, {"ce": ce, "aux": aux}
 
 
 def _local_rows(batch: dict, mesh) -> tuple[dict, tuple]:
@@ -123,12 +133,13 @@ def _grads(model: LM, batch: dict, cfg: ArchConfig, hp: TrainHParams, leaves, me
         groups = tuple(mesh.get_group(d) for d in dims)
     n = math.prod(g.size() for g in groups)
     loss, metrics = loss_fn(model, batch, cfg, hp, dp_groups=groups)
-    (loss / n).backward()
-    loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
-    if groups:
-        loss = _mean_over(loss, groups, n)
-        metrics["ce"] = _mean_over(metrics["ce"], groups, n)  # aux is global already
-    return loss, metrics, [leaf.take_grad() for leaf in leaves]
+    with obs.train_span(obs.active(), "train.backward"):
+        (loss / n).backward()
+        loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        if groups:
+            loss = _mean_over(loss, groups, n)
+            metrics["ce"] = _mean_over(metrics["ce"], groups, n)  # aux is global already
+        return loss, metrics, [leaf.take_grad() for leaf in leaves]
 
 
 def make_train_step(cfg: ArchConfig, hp: TrainHParams = TrainHParams()):
@@ -166,10 +177,13 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams = TrainHParams()):
         if hp.compress_grads:
             # stateless form, as the reference's step: the residual is dropped
             grads, _ = ef_compress(grads, ef_init(grads))
-        grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
-        lr = cosine_warmup(opt_state.step, peak_lr=hp.peak_lr, warmup=hp.warmup,
-                           total=hp.total_steps)
-        opt_state = opt_update(grads, opt_state, leaves, lr)
+        rec = obs.active()
+        with obs.train_span(rec, "train.clip"):
+            grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
+        with obs.train_span(rec, "train.optimizer"):
+            lr = cosine_warmup(opt_state.step, peak_lr=hp.peak_lr, warmup=hp.warmup,
+                               total=hp.total_steps)
+            opt_state = opt_update(grads, opt_state, leaves, lr)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
         return model, opt_state, metrics
 
