@@ -170,8 +170,8 @@ result line unless every phase passed):
                64..1024, 64 new tokens each).  Every request must finish with
                64 tokens, every logit must be finite, ``decode_attention``
                must launch once per attention layer per decode tick (28,
-               0, 16) and ``ssd_scan`` once per Mamba layer per admitted
-               prefill (0, 48, 0); then one request (prompt 128, 4
+               0, 16), ``ssd_scan`` and ``gated_rms_norm`` each once per
+               Mamba layer per admitted prefill (0, 48, 0); then one request (prompt 128, 4
                decode steps) on the card against the same port on the CPU
                with the weights copied over (``CPU_CHECK``): relative max
                logit error below 1e-3 with float32 compute and caches at
@@ -193,7 +193,8 @@ result line unless every phase passed):
                batch 4, prompt 512, 64 new tokens, seed 0:
                finite logits, the tokens' shape, ``decode_attention``
                launches = self-attention layers x 63 decode steps (32 x 63,
-               24 x 63), no ``ssd_scan``; then the card-vs-CPU check (the
+               24 x 63), no ``ssd_scan`` or ``gated_rms_norm``; then the
+               card-vs-CPU check (the
                limits above) on a full-width cut — one 5-layer period for
                the VLM, with its cross layer's gate at 0.5 so that the
                cross-attention reaches the logits; 2 encoder + 2 decoder
@@ -202,7 +203,7 @@ result line unless every phase passed):
                layers, MoE on every other layer) through the batcher on the
                card in its served bfloat16, 8 requests on 4 lanes: every
                request finishes, ``decode_attention`` launches = ticks,
-               ``ssd_scan`` = 7 x 8; each of its prefill and decode calls
+               ``ssd_scan`` = ``gated_rms_norm`` = 7 x 8; each of its prefill and decode calls
                replayed on the CPU (weights copied, the card's tokens and
                expert choices fed) within 0.06; then the card-vs-CPU check
                on the whole SMOKE model (float32 within 1e-3, bf16 within
@@ -222,6 +223,20 @@ result line unless every phase passed):
                4, its bound on the tensor-core route beside the FP32-pipe
                figure, and one call captured in a CUDA graph, which must
                equal the eager call bit for bit;
+    mamba-gate-kernel — ``gated_rms_norm``, the Mamba block's epilogue (D
+               skip, SiLU gate, RMSNorm; forward and backward kernels),
+               against its plain version on ``GATE_CASES`` (the training
+               shape 8 x 4096 x 32 x 64, a row of 8192 channels, ragged
+               small shapes) in float32 and bfloat16: the forward equal to
+               the plain version or within 1 bfloat16 / 8 float32 ulp where
+               the sum of squares moved rstd; the five gradients within a
+               relative 2-norm distance of 2^-8 (bfloat16 gradients) or
+               1e-4 (float32) of the float64 gradient at the plain
+               forward's rounded point (``gated_rms_norm_bwd_ref``), the
+               eager bfloat16 chain's distance printed beside; a control
+               computed in bfloat16 throughout, which both bfloat16 limits
+               must reject; two backward calls bit-equal and equal to the
+               gradient through autograd; the wrapper's refusals;
     train    — slice 9: mamba2-370m at full width and depth (48 layers,
                d_model 1024, 32 heads x 64, state 128, chunk 128, vocab
                50280) trains on the card, AdamW, remat, float32 master
@@ -230,8 +245,9 @@ result line unless every phase passed):
                steps into a checkpoint directory (as ``python -m
                repro_torch.launch.train`` runs), then the same command
                again, which must resume at step 4 and run steps 5-8;
-               ``ssd_scan`` must launch 48 x 2 x 8 times (forward and remat
-               recompute) and ``ssd_scan_bwd`` 48 x 8; every loss and
+               ``ssd_scan`` and ``gated_rms_norm`` must launch 48 x 2 x 8
+               times each (forward and remat recompute), ``ssd_scan_bwd``
+               and ``gated_rms_norm_bwd`` 48 x 8 each; every loss and
                grad-norm finite; step 4's checkpoint read back and a
                restart's restore of step 8 bit-equal to the saved state; an
                uninterrupted 8-step ``Trainer`` run from the same seed must
@@ -250,8 +266,9 @@ result line unless every phase passed):
                (parameters and moments DTensors, each weight gathered where
                a layer reads it, gradients reduce-scattered), then an
                unmeshed ``Trainer`` for 2 steps: losses, grad norms,
-               parameters and moments bit-equal; ``ssd_scan`` 48 x 2 x 2
-               and ``ssd_scan_bwd`` 48 x 2 launches in the meshed run; the
+               parameters and moments bit-equal; ``ssd_scan`` and
+               ``gated_rms_norm`` 48 x 2 x 2, ``ssd_scan_bwd`` and
+               ``gated_rms_norm_bwd`` 48 x 2 launches in the meshed run; the
                meshed checkpoint restored with ``shardings=`` bit-equal;
                one profiled meshed step (device busy share, the
                collectives' device time and host calls); then ``python -m
@@ -312,14 +329,19 @@ result line unless every phase passed):
                computes the SSD's gradient: no library yardstick), and each
                of its four launches' device time by kernel name from one
                profiled call;
+    mamba-gate timing — ``gated_rms_norm`` forward (rstd saved) and
+               backward at mamba2-370m's training shape (8 x 4096 rows, H 32,
+               P 64, bf16) by graph replay, beside the plain version (its
+               forward; autograd through it) and each one's bytes bound;
 15. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The phases run in the order device, build, kernels, fetch, small, storage,
-attn-kernel, ssd-kernel, ssd-bwd-kernel, main, kernels-sharded, sharded,
+attn-kernel, ssd-kernel, ssd-bwd-kernel, mamba-gate-kernel, main, kernels-sharded, sharded,
 dataflow, irredundant, fetch-sharded, compressed, distribute,
 halo-quantize, calibrate, h100-target, serve, serve-ctx, jamba-smoke,
 train, train-mesh, pipeline and tools (with dryrun's children beside
-them), examples, timing (stencil, fetch, 1s/2s), serve timing, train timing; each
+them), examples, timing (stencil, fetch, 1s/2s), serve timing, train timing,
+mamba-gate timing; each
 model is freed before the next (olmoe holds 13.8 GB, the VLM 20.2 GB, the
 training run about 37 GiB at its peak): every profiler window that reads
 host calls and kernels together runs before the timing phases'
@@ -2277,10 +2299,233 @@ def _dense_expert_bound(cfg) -> tuple[float, float]:
     return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
 
 
+#: the Mamba block's epilogue at mamba2-370m's training shape (B, S, H, P)
+GATE_TRAIN_SHAPE = (8, 4096, 32, 64)
+#: the kernel-vs-plain cases: the training shape, a row wider than one pass
+#: (8192 channels: two passes of 512 x 8 bfloat16), ragged small shapes
+GATE_CASES = [GATE_TRAIN_SHAPE, (1, 64, 128, 64), (3, 37, 5, 16), (2, 9, 3, 8)]
+#: the forward's limit in units in the last place of the output where the
+#: row's float32 sum of squares, summed in another order than PyTorch's
+#: reduction, moved rstd: bfloat16 rounds that away but at a rounding
+#: boundary (1); float32's rsqrtf (within 2 ulp, not monotone in its last
+#: bits) turns it into a few ulps, and the two products add one each (8)
+GATE_FWD_ULPS = {torch.bfloat16: 1, torch.float32: 8}
+#: the backward's limit, by the gradient's dtype: ||got - want||_2 <= limit
+#: ||want||_2 against ``gated_rms_norm_bwd_ref`` (float64 at the plain
+#: forward's rounded point).  One rounding of each bfloat16 element reads
+#: about 2^-9.3; float32 gradients differ by their sums' order alone
+GATE_GRAD = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-4}
+
+
+def _gate_lowp(y, xh, z, D, norm):
+    """The control: the epilogue in ``y``'s dtype throughout, the norm's
+    mean, rsqrt and scale too (the plain version's norm works in float32)."""
+    from repro_torch.kernels.mamba_gate import ops as gate_ops
+    from repro_torch.models.layers import silu
+
+    B, S, H, P = y.shape
+    g = (y + D[None, None, :, None].to(y.dtype) * xh).reshape(B, S, H * P) * silu(z)
+    return g * torch.rsqrt(torch.mean(g * g, -1, keepdim=True) + gate_ops.EPS) * \
+        norm.to(y.dtype)
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| in units in the last place of their (bfloat16 or float32)
+    type, elementwise."""
+    itype = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    mask = {torch.bfloat16: 0x7FFF, torch.float32: 0x7FFFFFFF}[got.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(itype).long()
+        return torch.where(i < 0, -(i & mask), i)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm()) if bool(torch.isfinite(g).all()) else math.inf
+
+
+def phase_mamba_gate_kernel(device) -> tuple[float, float]:
+    """``gated_rms_norm`` (the Mamba block's epilogue) against its plain
+    version on ``GATE_CASES``, bfloat16 and float32: the forward equal to the
+    plain version or within ``GATE_FWD_ULPS``, the bfloat16-throughout
+    control's forward outside it; the backward's five gradients within
+    ``GATE_GRAD`` of the float64 gradient at the plain forward's point, the
+    eager chain's distance beside them, the bfloat16-throughout control's
+    outside it; two backward calls bit-equal, and the gradient through
+    ``gated_rms_norm`` (``_GatedRmsNorm``) equal to the direct call, one
+    launch each; then the wrapper's refusals.  The worst max|kernel - plain|
+    of the forward and of the gradients."""
+    from repro_torch.kernels.mamba_gate import (gated_rms_norm, gated_rms_norm_bwd,
+                                                gated_rms_norm_bwd_ref, gated_rms_norm_ref,
+                                                launch_plan)
+    from repro_torch.kernels.mamba_gate import ops as gate_ops
+
+    rng = np.random.default_rng(SEED)
+    names = ("dy", "dxh", "dz", "dD", "dnorm")
+    worst_fwd = worst_bwd = 0.0
+    control_fwd = control_bwd = math.inf
+    for B, S, H, P in GATE_CASES:
+        y = rng_tensor(rng, (B, S, H, P), torch.float32, device)
+        xh = rng_tensor(rng, (B, S, H, P), torch.float32, device) * 0.5
+        z = rng_tensor(rng, (B, S, H * P), torch.float32, device) * 2.0
+        D = torch.as_tensor(rng.uniform(0.5, 1.5, H), dtype=torch.float32, device=device)
+        norm = 1.0 + 0.1 * rng_tensor(rng, (H * P,), torch.float32, device)
+        dout = rng_tensor(rng, (B, S, H * P), torch.float32, device)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (y.to(dt), xh.to(dt), z.to(dt), D, norm)
+            do = dout.to(dt)
+            fwd0, bwd0 = gated_rms_norm.launches, gated_rms_norm_bwd.launches
+            out, rstd = gate_ops._forward(*args, save_rstd=True)
+            got = gated_rms_norm_bwd(*args, rstd, do)
+            again = gated_rms_norm_bwd(*args, rstd, do)
+            with torch.enable_grad():
+                leaves = [t.detach().clone().requires_grad_() for t in args]
+                through = torch.autograd.grad(gated_rms_norm(*leaves), leaves, do)
+            torch.cuda.synchronize()
+            counted = (gated_rms_norm.launches - fwd0, gated_rms_norm_bwd.launches - bwd0)
+            plain = gated_rms_norm_ref(*args)
+            ulps = _ulps(out, plain)
+            differ = float((ulps > 0).double().mean())
+            want = gated_rms_norm_bwd_ref(*args, do)
+            ex = [_rel_l2(g, w) / GATE_GRAD[g.dtype] for g, w in zip(got, want)]
+            with torch.enable_grad():
+                eager = torch.autograd.grad(gated_rms_norm_ref(*leaves), leaves, do)
+            ex_eager = [_rel_l2(g, w) / GATE_GRAD[g.dtype] for g, w in zip(eager, want)]
+            same = all(bit_equal(a, b) for a, b in zip(got, again))
+            same_auto = all(bit_equal(a, b) for a, b in zip(got, through))
+            note = ""
+            if dt == torch.bfloat16:
+                with torch.enable_grad():
+                    lowp = _gate_lowp(*leaves)
+                    ctrl = torch.autograd.grad(lowp, leaves, do)
+                c_fwd = int(_ulps(lowp.detach(), plain).max())
+                c_ex = [_rel_l2(g, w) / GATE_GRAD[g.dtype] for g, w in zip(ctrl, want)]
+                c_bf16 = max(c_ex[:3])
+                control_fwd, control_bwd = min(control_fwd, c_fwd), min(control_bwd, c_bf16)
+                note = (f"; bfloat16-throughout control: forward {c_fwd} ulp, gradients "
+                        f"{', '.join(f'{e:.3f}' for e in c_ex)} x the limit")
+            errs = [max_abs(g, w) for g, w in zip(got, want)]
+            log(f"[mamba-gate-kernel] gated_rms_norm B={B} S={S} H={H} P={P} {str(dt)[6:]}, plan "
+                f"{launch_plan(H * P, P, dt)}: forward {differ:.3e} of the elements differ from "
+                f"the plain version, by at most {int(ulps.max())} ulp (limit "
+                f"{GATE_FWD_ULPS[dt]}), max|kernel-plain| {max_abs(out, plain):.3e}; "
+                f"gradients {'/'.join(names)} relative 2-norm distance from the float64 "
+                f"gradient x the limit {', '.join(f'{e:.3f}' for e in ex)} (the eager chain "
+                f"{', '.join(f'{e:.3f}' for e in ex_eager)}), max|kernel-float64| "
+                f"{', '.join(f'{e:.3e}' for e in errs)}; two calls bit-equal {same}; through "
+                f"autograd == the direct call {same_auto}; launches {counted}{note}")
+            if not (int(ulps.max()) <= GATE_FWD_ULPS[dt] and max(ex) <= 1.0 and same and
+                    same_auto and counted == (2, 3) and out.dtype == dt and
+                    [g.dtype for g in got] == [dt, dt, dt, torch.float32, torch.float32]):
+                raise AssertionError(f"gated_rms_norm differs from its plain version or "
+                                     f"between calls: {int(ulps.max())} ulp, {ex}, "
+                                     f"deterministic {same}, autograd {same_auto}, {counted}")
+            worst_fwd = max(worst_fwd, max_abs(out, plain))
+            worst_bwd = max(worst_bwd, *errs)
+            del out, rstd, got, again, through, leaves, want, eager, plain, ulps
+        del y, xh, z, dout
+        _free()
+    if not (control_fwd > GATE_FWD_ULPS[torch.bfloat16] and control_bwd > 1.0):
+        raise AssertionError(f"the bfloat16 limits do not reject a bfloat16-throughout control "
+                             f"(forward {control_fwd} ulp, gradients {control_bwd:.3f} x the "
+                             f"limit)")
+    # the wrapper's refusals: it raises, and never runs the plain version on the card
+    y = torch.zeros((2, 8, 4, 16), dtype=torch.bfloat16, device=device)
+    z = torch.zeros((2, 8, 64), dtype=torch.bfloat16, device=device)
+    D, norm = torch.ones(4, device=device), torch.ones(64, device=device)
+    shifted = torch.zeros(y.numel() + 1, dtype=y.dtype, device=device)[1:].view(y.shape)
+    refused = []
+    for what, call, err in (
+            ("non-contiguous", lambda: gated_rms_norm(y.transpose(0, 1), y.transpose(0, 1),
+                                                      z.transpose(0, 1), D, norm), ValueError),
+            ("float16", lambda: gated_rms_norm(y.half(), y.half(), z.half(), D, norm), TypeError),
+            ("float64", lambda: gated_rms_norm(y.double(), y.double(), z.double(), D, norm),
+             TypeError),
+            ("misaligned", lambda: gated_rms_norm(shifted, y, z, D, norm), ValueError),
+            ("P 12", lambda: gated_rms_norm(
+                torch.zeros((2, 8, 5, 12), dtype=torch.bfloat16, device=device),
+                torch.zeros((2, 8, 5, 12), dtype=torch.bfloat16, device=device),
+                torch.zeros((2, 8, 60), dtype=torch.bfloat16, device=device),
+                torch.ones(5, device=device), torch.ones(60, device=device)), ValueError)):
+        before = gated_rms_norm.launches
+        try:
+            call()
+        except err:
+            refused.append(what)
+        if gated_rms_norm.launches != before:
+            raise AssertionError(f"gated_rms_norm launched on a {what} input")
+    log(f"[mamba-gate-kernel] the wrapper refuses {', '.join(refused)} inputs")
+    if len(refused) != 5:
+        raise AssertionError(f"gated_rms_norm took an input it must refuse: refused {refused}")
+    log(f"[mamba-gate-kernel] worst max|kernel-plain|: forward {worst_fwd:.3e}, gradients "
+        f"{worst_bwd:.3e}; the bfloat16-throughout control at least {control_fwd} ulp forward, "
+        f"{control_bwd:.3f} x the gradients' limit")
+    return worst_fwd, worst_bwd
+
+
+def _gate_bytes(B: int, S: int, H: int, P: int, esize: int) -> tuple[int, int]:
+    """Bytes of one forward (y, xh, z read, out written, rstd and D, w) and
+    one backward call (y, xh, z, dout read, dy, dxh, dz written, rstd, D, w,
+    dD, dw), each moved once; the backward's per-CTA partials are scratch."""
+    rows, hp = B * S, H * P
+    small = 4 * rows + 4 * H + 4 * hp
+    return 4 * rows * hp * esize + small, 7 * rows * hp * esize + small + 4 * H + 4 * hp
+
+
+def phase_mamba_gate_timing(device) -> dict:
+    """``gated_rms_norm`` forward (the training route, rstd saved) and
+    backward at mamba2-370m's training shape in bfloat16 by graph replay,
+    beside the plain version (eager CUDA events: its forward, and autograd
+    through it) and the bytes bound of each."""
+    from repro_torch.kernels.mamba_gate import gated_rms_norm_bwd, gated_rms_norm_ref
+    from repro_torch.kernels.mamba_gate import ops as gate_ops
+
+    B, S, H, P = GATE_TRAIN_SHAPE
+    rng = np.random.default_rng(SEED)
+    y, xh, dout = (rng_tensor(rng, (B, S, H, P), torch.bfloat16, device) for _ in range(3))
+    z = rng_tensor(rng, (B, S, H * P), torch.bfloat16, device)
+    dout = dout.reshape(B, S, H * P)
+    D = torch.ones(H, device=device)
+    norm = torch.ones(H * P, device=device)
+    _, rstd = gate_ops._forward(y, xh, z, D, norm, save_rstd=True)
+    fwd = _measure(lambda: gate_ops._forward(y, xh, z, D, norm, save_rstd=True), 20)
+    bwd = _measure(lambda: gated_rms_norm_bwd(y, xh, z, D, norm, rstd, dout), 20)
+    plain_fwd = _time_ms(lambda: gated_rms_norm_ref(y, xh, z, D, norm), 5, warmup=2)[0]
+    leaves = [t.detach().requires_grad_() for t in (y, xh, z, D, norm)]
+
+    def plain_grad():
+        torch.autograd.grad(gated_rms_norm_ref(*leaves), leaves, dout)
+
+    plain_bwd = _time_ms(plain_grad, 5, warmup=2)[0] - plain_fwd
+    per_launch = _launch_ms(lambda: gated_rms_norm_bwd(y, xh, z, D, norm, rstd, dout))
+    fb, bb = _gate_bytes(B, S, H, P, 2)
+    rows = {}
+    for name, m, nbytes, plain, how in (
+            ("gated_rms_norm", fwd, fb, plain_fwd, "eager CUDA events"),
+            ("gated_rms_norm_bwd", bwd, bb, plain_bwd,
+             "eager CUDA events: autograd through the plain version less its forward")):
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        log(f"[timing] {name} B={B} S={S} H={H} P={P} bfloat16 (mamba2-370m's training "
+            f"shape): kernel {_fmt(m)}; plain {plain:.6f} ms ({how}); bound {bound:.6f} ms "
+            f"(bytes: {nbytes} B), {bound / m['ms']:.1%} of bound")
+        rows[name] = {"ms": m["ms"], "host_ms": m["host_ms"], "plain_ms": plain,
+                      "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "err": None}
+    log(f"[timing] gated_rms_norm_bwd per launch, device ms of one profiled call: " + (
+        ", ".join(f"{k} {v:.6f}" for k, v in per_launch.items()) or
+        "not measured (the profiler reported no kernel rows)"))
+    del y, xh, z, dout, rstd, leaves
+    _free()
+    return rows
+
+
 def phase_serve(device, arch: str) -> dict:
     """Slice 3's path for one model, once, through the ContinuousBatcher."""
     from repro_torch.core.cfa.obs import TraceRecorder
     from repro_torch.kernels.block_attention import decode_attention
+    from repro_torch.kernels.mamba_gate import gated_rms_norm
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.models.lm import init_lm
     from repro_torch.serve import scheduler
@@ -2321,13 +2566,13 @@ def phase_serve(device, arch: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # earlier phases' results, the weights, the lanes
-        decode_attention.launches = ssd_scan.launches = 0
+        decode_attention.launches = ssd_scan.launches = gated_rms_norm.launches = 0
         t0 = time.perf_counter()
         cb.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"decode_attention": decode_attention.launches,
-                    "ssd_scan": ssd_scan.launches}
+                    "ssd_scan": ssd_scan.launches, "gated_rms_norm": gated_rms_norm.launches}
     finally:
         scheduler.lm_prefill, scheduler.lm_decode = prefill_fn, decode_fn
     peak = torch.cuda.max_memory_allocated()
@@ -2352,9 +2597,10 @@ def phase_serve(device, arch: str) -> dict:
     if n_decode != cb.ticks or launches["decode_attention"] != n_attn * n_decode:
         raise AssertionError(f"{arch}: {launches['decode_attention']} decode_attention launches "
                              f"for {n_decode} decode ticks x {n_attn} attention layers")
-    if launches["ssd_scan"] != n_mamba * len(reqs):
-        raise AssertionError(f"{arch}: {launches['ssd_scan']} ssd_scan launches for "
-                             f"{len(reqs)} prefills x {n_mamba} mamba layers")
+    for name in ("ssd_scan", "gated_rms_norm"):
+        if launches[name] != n_mamba * len(reqs):
+            raise AssertionError(f"{arch}: {launches[name]} {name} launches for "
+                                 f"{len(reqs)} prefills x {n_mamba} mamba layers")
     err = _cpu_check(model, cfg, rng)
     tick = _profile_decode(model, cb.caches, cb.lanes)
     if cfg.moe_experts:
@@ -2383,6 +2629,7 @@ def phase_serve_ctx(device, arch: str) -> dict:
     batch ``CTX_BATCH``, prompts of ``CTX_PROMPT`` tokens, ``CTX_GEN`` new
     tokens, ``--seed 0``; then the card-vs-CPU check at a full-width cut."""
     from repro_torch.kernels.block_attention import decode_attention
+    from repro_torch.kernels.mamba_gate import gated_rms_norm
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.launch import serve as launcher
     from repro_torch.models.lm import init_lm
@@ -2411,13 +2658,13 @@ def phase_serve_ctx(device, arch: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        decode_attention.launches = ssd_scan.launches = 0
+        decode_attention.launches = ssd_scan.launches = gated_rms_norm.launches = 0
         t0 = time.perf_counter()
         out = launcher.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"decode_attention": decode_attention.launches,
-                    "ssd_scan": ssd_scan.launches}
+                    "ssd_scan": ssd_scan.launches, "gated_rms_norm": gated_rms_norm.launches}
     finally:
         launcher.lm_prefill, launcher.lm_decode = prefill_fn, decode_fn
     peak = torch.cuda.max_memory_allocated()
@@ -2434,8 +2681,9 @@ def phase_serve_ctx(device, arch: str) -> dict:
     if n_decode[0] != gen - 1 or launches["decode_attention"] != n_self * (gen - 1):
         raise AssertionError(f"{arch}: {launches['decode_attention']} decode_attention launches "
                              f"for {n_decode[0]} decode steps x {n_self} self-attention layers")
-    if launches["ssd_scan"]:
-        raise AssertionError(f"{arch}: ssd_scan launched {launches['ssd_scan']} times")
+    if launches["ssd_scan"] or launches["gated_rms_norm"]:
+        raise AssertionError(f"{arch}: ssd_scan launched {launches['ssd_scan']} and "
+                             f"gated_rms_norm {launches['gated_rms_norm']} times")
     depth = CPU_CHECK[arch][2]
     cut = dataclasses.replace(cfg, n_layers=depth, enc_layers=min(cfg.enc_layers, depth))
     model = init_lm(cut, generator=torch.Generator(device).manual_seed(SEED), device=device)
@@ -2464,6 +2712,7 @@ def phase_jamba_smoke(device) -> dict:
     differences compound over the decode steps.)"""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.block_attention import decode_attention
+    from repro_torch.kernels.mamba_gate import gated_rms_norm
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.models.lm import init_caches, init_lm, lm_decode, lm_prefill
     from repro_torch.serve import scheduler
@@ -2500,12 +2749,12 @@ def phase_jamba_smoke(device) -> dict:
     scheduler.lm_prefill, scheduler.lm_decode, scheduler._splice = prefill, decode, splice
     try:
         torch.cuda.synchronize()
-        decode_attention.launches = ssd_scan.launches = 0
+        decode_attention.launches = ssd_scan.launches = gated_rms_norm.launches = 0
         with _routes() as routes:
             cb.run()
         torch.cuda.synchronize()
         launches = {"decode_attention": decode_attention.launches,
-                    "ssd_scan": ssd_scan.launches}
+                    "ssd_scan": ssd_scan.launches, "gated_rms_norm": gated_rms_norm.launches}
     finally:
         scheduler.lm_prefill, scheduler.lm_decode, scheduler._splice = (prefill_fn, decode_fn,
                                                                         splice_fn)
@@ -2543,9 +2792,10 @@ def phase_jamba_smoke(device) -> dict:
     if launches["decode_attention"] != n_attn * ticks:
         raise AssertionError(f"jamba SMOKE: {launches['decode_attention']} decode_attention "
                              f"launches for {ticks} ticks x {n_attn} attention layers")
-    if launches["ssd_scan"] != n_mamba * len(reqs):
-        raise AssertionError(f"jamba SMOKE: {launches['ssd_scan']} ssd_scan launches for "
-                             f"{len(reqs)} prefills x {n_mamba} mamba layers")
+    for name in ("ssd_scan", "gated_rms_norm"):
+        if launches[name] != n_mamba * len(reqs):
+            raise AssertionError(f"jamba SMOKE: {launches[name]} {name} launches for "
+                                 f"{len(reqs)} prefills x {n_mamba} mamba layers")
     if not max(errs) < BF16_LOGIT_TOL:
         raise AssertionError(f"jamba SMOKE: card and CPU logits differ by {max(errs)!r}")
     return {"launches": launches, "ticks": ticks, "err": max(errs), "cpu_err": err}
@@ -2665,6 +2915,7 @@ def phase_train(device) -> dict:
     import tempfile
 
     from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.mamba_gate import gated_rms_norm, gated_rms_norm_bwd
     from repro_torch.kernels.ssd import ssd_scan, ssd_scan_bwd
     from repro_torch.launch import train as launch_train
     from repro_torch.train.loop import Trainer
@@ -2681,6 +2932,7 @@ def phase_train(device) -> dict:
             _free()
             torch.cuda.reset_peak_memory_stats()
             ssd_scan.launches = ssd_scan_bwd.launches = 0
+            gated_rms_norm.launches = gated_rms_norm_bwd.launches = 0
             t0 = time.perf_counter()
             first = launch_train.main(argv)
             saved = [t.cpu() for t in first["trainer"].state()]
@@ -2688,7 +2940,9 @@ def phase_train(device) -> dict:
             second = launch_train.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"ssd_scan": ssd_scan.launches, "ssd_scan_bwd": ssd_scan_bwd.launches}
+            launches = {"ssd_scan": ssd_scan.launches, "ssd_scan_bwd": ssd_scan_bwd.launches,
+                        "gated_rms_norm": gated_rms_norm.launches,
+                        "gated_rms_norm_bwd": gated_rms_norm_bwd.launches}
             break
         except torch.OutOfMemoryError as e:
             log(f"[train] batch {batch} x {TRAIN_SEQ} does not fit: {str(e).splitlines()[0][:120]}")
@@ -2710,11 +2964,14 @@ def phase_train(device) -> dict:
     want_fwd, want_bwd = n_mamba * 2 * steps, n_mamba * steps
     log(f"[train] launches over the launcher's {steps} steps: ssd_scan {launches['ssd_scan']} "
         f"(want {n_mamba} x 2 x {steps} = {want_fwd}: forward and remat recompute), "
-        f"ssd_scan_bwd {launches['ssd_scan_bwd']} (want {n_mamba} x {steps} = {want_bwd})")
+        f"ssd_scan_bwd {launches['ssd_scan_bwd']} (want {n_mamba} x {steps} = {want_bwd}); "
+        f"gated_rms_norm {launches['gated_rms_norm']} (want {want_fwd}), gated_rms_norm_bwd "
+        f"{launches['gated_rms_norm_bwd']} (want {want_bwd})")
     if first["start"] != 0 or second["start"] != TRAIN_STEPS or \
             sorted(_losses(second["log"])) != list(range(TRAIN_STEPS + 1, steps + 1)):
         raise AssertionError("the second launcher run did not resume at the checkpoint")
-    if launches != {"ssd_scan": want_fwd, "ssd_scan_bwd": want_bwd}:
+    if launches != {"ssd_scan": want_fwd, "ssd_scan_bwd": want_bwd,
+                    "gated_rms_norm": want_fwd, "gated_rms_norm_bwd": want_bwd}:
         raise AssertionError(f"launch counts {launches} != {want_fwd}, {want_bwd}")
     for m in first["log"] + second["log"]:
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
@@ -2800,8 +3057,9 @@ def phase_train_mesh(device, batch: int, smi: str) -> dict:
     ``[train]``'s batch x ``TRAIN_SEQ`` for ``TRAIN_MESH_STEPS`` steps, then an
     unmeshed ``Trainer`` from the same seed; their losses, grad norms,
     parameters and moments must be bit-equal, ``ssd_scan`` and
-    ``ssd_scan_bwd`` must launch inside the meshed steps (layers x 2 x steps,
-    layers x steps), and the meshed checkpoint restored with ``shardings=``
+    ``gated_rms_norm`` (layers x 2 x steps each), ``ssd_scan_bwd`` and
+    ``gated_rms_norm_bwd`` (layers x steps each) must launch inside the meshed
+    steps, and the meshed checkpoint restored with ``shardings=``
     must equal the saved state bit for bit; then ``python -m
     torch.distributed.run --standalone --nproc-per-node 1 -m
     repro_torch.launch.train`` in a child process must log the meshed run's
@@ -2811,6 +3069,7 @@ def phase_train_mesh(device, batch: int, smi: str) -> dict:
     import torch.distributed as dist
 
     from repro_torch.distributed.sharding import full_tensor, use_mesh
+    from repro_torch.kernels.mamba_gate import gated_rms_norm, gated_rms_norm_bwd
     from repro_torch.kernels.ssd import ssd_scan, ssd_scan_bwd
     from repro_torch.launch.mesh import mesh_for_devices
     from repro_torch.train.loop import Trainer
@@ -2830,6 +3089,7 @@ def phase_train_mesh(device, batch: int, smi: str) -> dict:
             _free()
             torch.cuda.reset_peak_memory_stats()
             ssd_scan.launches = ssd_scan_bwd.launches = 0
+            gated_rms_norm.launches = gated_rms_norm_bwd.launches = 0
             trainer = Trainer(cfg, batch=batch, seq=TRAIN_SEQ, ckpt_dir=root / name, hp=hp,
                               mesh=mesh if name == "meshed" else None,
                               ckpt_every=steps if name == "meshed" else 10 ** 9, device=device)
@@ -2837,7 +3097,9 @@ def phase_train_mesh(device, batch: int, smi: str) -> dict:
             torch.cuda.synchronize()
             run = {"log": run_log, "peak": torch.cuda.max_memory_allocated(),
                    "launches": {"ssd_scan": ssd_scan.launches,
-                                "ssd_scan_bwd": ssd_scan_bwd.launches},
+                                "ssd_scan_bwd": ssd_scan_bwd.launches,
+                                "gated_rms_norm": gated_rms_norm.launches,
+                                "gated_rms_norm_bwd": gated_rms_norm_bwd.launches},
                    "step_ms": statistics.median(m["dt"] for m in run_log[1:]) * 1e3,
                    "state": [full_tensor(t).cpu() for t in trainer.state()]}
             if name == "meshed":
@@ -2857,7 +3119,8 @@ def phase_train_mesh(device, batch: int, smi: str) -> dict:
             del trainer
         _free()
         meshed, plain = runs["meshed"], runs["unmeshed"]
-        want = {"ssd_scan": n_mamba * 2 * steps, "ssd_scan_bwd": n_mamba * steps}
+        want = {"ssd_scan": n_mamba * 2 * steps, "ssd_scan_bwd": n_mamba * steps,
+                "gated_rms_norm": n_mamba * 2 * steps, "gated_rms_norm_bwd": n_mamba * steps}
         same = {k: [m[k] for m in meshed["log"]] == [m[k] for m in plain["log"]]
                 for k in ("loss", "grad_norm", "lr")}
         same_state = all(bit_equal(a, b) for a, b in zip(meshed["state"], plain["state"]))
@@ -2866,9 +3129,11 @@ def phase_train_mesh(device, batch: int, smi: str) -> dict:
             f"{_losses(plain['log'])}; bit-equal: {same}; every parameter and moment "
             f"({len(plain['state'])} tensors) bit-equal: {same_state}")
         log(f"[train-mesh] launches in the meshed run: ssd_scan {meshed['launches']['ssd_scan']} "
-            f"(want {n_mamba} x 2 x {steps} = {want['ssd_scan']}), ssd_scan_bwd "
-            f"{meshed['launches']['ssd_scan_bwd']} (want {n_mamba} x {steps} = "
-            f"{want['ssd_scan_bwd']}); the unmeshed run's {plain['launches']}")
+            f"and gated_rms_norm {meshed['launches']['gated_rms_norm']} (want {n_mamba} x 2 x "
+            f"{steps} = {want['ssd_scan']} each), ssd_scan_bwd "
+            f"{meshed['launches']['ssd_scan_bwd']} and gated_rms_norm_bwd "
+            f"{meshed['launches']['gated_rms_norm_bwd']} (want {n_mamba} x {steps} = "
+            f"{want['ssd_scan_bwd']} each); the unmeshed run's {plain['launches']}")
         log(f"[train-mesh] the meshed checkpoint of step {steps} restored with shardings= "
             f"(DTensors on the mesh) == the state it saved, bit for bit: {meshed['ckpt_equal']}")
         log(f"[train-mesh] step {steps} of {steps}: meshed {meshed['step_ms']:.3f} ms, unmeshed "
@@ -3235,7 +3500,7 @@ def _train_lm_log(text: str) -> dict:
     """``train_lm``'s output: its logged losses by step, and the first and
     last step of its summary line."""
     losses = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
-        r"^step\s+(\d+)\s+loss (\S+)\s+lr \S+\s+\S+s$", text, re.M)}
+        r"^step\s+(\d+)\s+loss (\S+)\s+lr \S+\s+\S+ s/step$", text, re.M)}
     m = re.search(r"^steps (\d+)-(\d+) on ", text, re.M)
     if m is None or not losses:
         raise AssertionError(f"train_lm printed no losses or no summary:\n{text[-2000:]}")
@@ -3785,6 +4050,7 @@ def main() -> int:
     worst_attn = phase_attn_kernel(device)
     worst_ssd = phase_ssd_kernel(device)
     worst_ssd_bwd = phase_ssd_bwd_kernel(device)
+    worst_gate = phase_mamba_gate_kernel(device)
     main_run = phase_main(device, cut(MAIN_SPACE))
     worst_sharded = phase_kernels_sharded(device, main_run)
     sharded_run = phase_sharded(device, main_run)
@@ -3824,6 +4090,7 @@ def main() -> int:
                                         fetch_sharded_run["assignment"])
     serve_rows = phase_serve_timing(device, runs)
     bwd_row = phase_train_timing(device)
+    gate_rows = phase_mamba_gate_timing(device)
     log_clocks()
     row = rows[0]
     kernels = [{
@@ -3871,6 +4138,15 @@ def main() -> int:
         **{k: bwd_row[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
     })
+    # the Mamba block's epilogue: no Pallas counterpart (XLA fuses it on the TPU)
+    for name, worst_k in zip(("gated_rms_norm", "gated_rms_norm_bwd"), worst_gate):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_gate/csrc/gated_rms_norm.cu",
+            "replaces": None, "launches": train_run["launches"][name], "max_abs_err": worst_k,
+            **{k: gate_rows[name][k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+        })
     # the per-port wrappers launch the kernels of rows 1 and 2 (no source of their own)
     for name, source, replaces, launches, worst_k in (
             ("execute_tiles_sharded", "src/repro_torch/kernels/stencil/csrc/stencil_tiles.cu",
@@ -3896,13 +4172,17 @@ def main() -> int:
     paths = {**runs, **ctx_runs, f"{JAMBA} SMOKE": jamba_run}
     log("[done] launches per serve path: " + "; ".join(
         f"{name} decode_attention {r['launches']['decode_attention']}, ssd_scan "
-        f"{r['launches']['ssd_scan']}" for name, r in paths.items()))
+        f"{r['launches']['ssd_scan']}, gated_rms_norm {r['launches']['gated_rms_norm']}"
+        for name, r in paths.items()))
     launches = train_run["launches"]
     log(f"[done] launches over the training path ({TRAIN_ARCH}, batch {train_run['batch']}, "
         f"{2 * TRAIN_STEPS} steps through the launcher): ssd_scan {launches['ssd_scan']}, "
-        f"ssd_scan_bwd {launches['ssd_scan_bwd']}; over the meshed path ({TRAIN_MESH_STEPS} "
+        f"ssd_scan_bwd {launches['ssd_scan_bwd']}, gated_rms_norm {launches['gated_rms_norm']}, "
+        f"gated_rms_norm_bwd {launches['gated_rms_norm_bwd']}; over the meshed path ({TRAIN_MESH_STEPS} "
         f"steps): ssd_scan {mesh_run['launches']['ssd_scan']}, ssd_scan_bwd "
-        f"{mesh_run['launches']['ssd_scan_bwd']}")
+        f"{mesh_run['launches']['ssd_scan_bwd']}, gated_rms_norm "
+        f"{mesh_run['launches']['gated_rms_norm']}, gated_rms_norm_bwd "
+        f"{mesh_run['launches']['gated_rms_norm_bwd']}")
     log(f"[done] launches over [tools]: stencil_tiles {tools_run['traced']['cuda']['launches']} "
         f"(cfa_trace --backend cuda, one per wave), 0 (--backend dataflow: the plain version), "
         f"{len(KERNEL_CASES)} (stencil_tile_op); [pipeline] and [dryrun] launch no kernel of "

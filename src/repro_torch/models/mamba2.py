@@ -20,6 +20,7 @@ from torch import nn
 
 from repro_torch.core.cfa.api import resolve_device
 from repro_torch.distributed.sharding import P
+from repro_torch.kernels.mamba_gate import gated_rms_norm
 from repro_torch.kernels.ssd import ssd_decode_step, ssd_scan
 
 from .config import ArchConfig
@@ -145,7 +146,7 @@ def _ssd(xh, loga, Bm, Cm, chunk: int):
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
     y, state = ssd_scan(xh, loga, Bm, Cm, chunk=L)
-    return y[:, :T], state
+    return y[:, :T].contiguous(), state  # the epilogue kernel takes whole rows
 
 
 def _mamba_full(m: Mamba2, x: torch.Tensor):
@@ -160,9 +161,7 @@ def _mamba_full(m: Mamba2, x: torch.Tensor):
     loga, dtp = _decays(m, dt)
     xh = xi_c.reshape(B, S, h, pd) * dtp[..., None].to(xi_c.dtype)
     y, state = _ssd(xh, loga, Bm_c, Cm_c, cfg.ssm_chunk)
-    y = y + m.D[None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(B, S, h * pd)
-    y = rms_norm(y * silu(z), m.norm)
+    y = gated_rms_norm(y, xh, z, m.D, m.norm)
     cd = _cd(cfg)
     return y.to(cd) @ m.w_out.to(cd), (xi, Bm, Cm), state
 

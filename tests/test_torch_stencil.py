@@ -137,7 +137,7 @@ def test_build_plumbing_without_nvcc(tmp_path, monkeypatch):
     """Sources are found and named by content hash; no nvcc means a clear
     error, never a fallback."""
     assert set(_build.sources()) == {"stencil_tiles", "facet_fetch", "block_attention",
-                                     "ssd_scan", "ssd_scan_bwd"}
+                                     "ssd_scan", "ssd_scan_bwd", "gated_rms_norm"}
     assert "-fmad=false" in _build.FLAGS and "--use_fast_math" not in _build.FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
