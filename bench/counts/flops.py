@@ -21,12 +21,27 @@ def _expert_ff(arch: dict) -> int:
     return arch["moe_d_ff"] or arch["d_ff"]
 
 
-def matmul_params(arch: dict) -> int:
+def _moe_products(arch: dict) -> int | float:
+    """One MoE layer's weights a token multiplies through: the router's
+    ``d × moe_experts``; the routed experts' ``3 d f`` times the experts a
+    token meets on this card, ``moe_top_k × held / moe_experts``, the
+    expected share under uniform routing (``moe_experts_held``: the experts
+    this card holds of an expert-parallel layer, 0 for all of them); and a
+    shared expert's ``3 d × moe_shared_d_ff``, which every token passes."""
+    d, e = arch["d_model"], arch["moe_experts"]
+    routed = arch["moe_top_k"] * (arch.get("moe_experts_held", 0) or e) * 3 * d * _expert_ff(arch)
+    whole, rest = divmod(routed, e)
+    return d * e + (routed / e if rest else whole) + 3 * d * arch.get("moe_shared_d_ff", 0)
+
+
+def matmul_params(arch: dict) -> int | float:
     """N: the weights a token multiplies through in the forward pass — every
-    layer's projections, the experts a token is routed to (top-k, no
-    capacity padding), the router and the output head; not the embedding
-    lookup, norms, convolutions or per-head scalars (``ArchConfig``'s
-    ``active_param_count()`` less the embedding table)."""
+    layer's projections, the experts a token is routed to on this card
+    (:func:`_moe_products`; no capacity padding), the router and the output
+    head; not the embedding lookup, norms, convolutions or per-head scalars
+    (with every expert held and no shared expert, ``ArchConfig``'s
+    ``active_param_count()`` less the embedding table).  A whole number
+    unless an expert share makes the routed part a fraction."""
     d, v = arch["d_model"], arch["vocab"]
     n_per = arch["n_layers"] // len(arch["period"])
     per_period = 0
@@ -41,7 +56,7 @@ def matmul_params(arch: dict) -> int:
         else:
             raise ValueError(kind)
         if i in arch["moe_positions"]:
-            per_period += arch["moe_top_k"] * 3 * d * _expert_ff(arch) + d * arch["moe_experts"]
+            per_period += _moe_products(arch)
         elif not (kind == "mamba" and arch["family"] == "ssm"):
             per_period += 3 * d * arch["d_ff"]
     return v * d + n_per * per_period

@@ -36,7 +36,7 @@ import torch
 from bench import inputs, registry
 from bench.trace import Trace, read_chrome_trace
 
-__all__ = ["run", "make_trainer", "program_readings", "reference_readings", "gaps"]
+__all__ = ["run", "check_leaves", "make_trainer", "program_readings", "reference_readings", "gaps"]
 
 
 def _sync(device) -> None:
@@ -50,6 +50,18 @@ def _arch_config(arch: dict):
     return ArchConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in arch.items()})
 
 
+def check_leaves(have: dict, specs: list) -> None:
+    """Raise where the program's parameters ``have`` (key -> shape) are not
+    the benchmark's leaves ``specs`` (:func:`bench.inputs.config_specs`),
+    naming the keys and shapes on each side alone."""
+    want = {key: tuple(shape) for key, shape, _, _ in specs}
+    have = {key: tuple(shape) for key, shape in have.items()}
+    if have != want:
+        raise RuntimeError(f"the program's parameters differ from the benchmark's weights: "
+                           f"only the program's {sorted(set(have.items()) - set(want.items()))}, "
+                           f"only the benchmark's {sorted(set(want.items()) - set(have.items()))}")
+
+
 def make_trainer(config: dict, mix: dict, seed: int, device, ckpt_dir):
     """The program's ``Trainer`` on the cell's shapes with the benchmark's
     feed and weights."""
@@ -58,6 +70,7 @@ def make_trainer(config: dict, mix: dict, seed: int, device, ckpt_dir):
     from repro_torch.train.steps import TrainHParams
 
     arch, batch, seq = config["arch"], config["batch"], mix["seq"]
+    specs = inputs.config_specs(config)
 
     class Feed(SyntheticTokens):
         """The program's prefetching pipeline over the benchmark's batches."""
@@ -70,13 +83,8 @@ def make_trainer(config: dict, mix: dict, seed: int, device, ckpt_dir):
                       hp=TrainHParams(**config["hparams"]), seed=seed, ckpt_every=10 ** 9,
                       data=feed, device=device)
     leaves = _leaves(trainer)
-    want = {key: shape for key, shape, _, _ in inputs.leaf_specs(arch)}
-    have = {key: tuple(leaf.shape) for key, leaf in leaves.items()}
-    if have != want:
-        raise RuntimeError(f"the program's parameters differ from the benchmark's weights: "
-                           f"only the program's {sorted(set(have.items()) - set(want.items()))}, "
-                           f"only the benchmark's {sorted(set(want.items()) - set(have.items()))}")
-    for key, value in inputs.iter_weights(arch, seed, trainer.device):
+    check_leaves({key: leaf.shape for key, leaf in leaves.items()}, specs)
+    for key, value in inputs.iter_weights(specs, seed, trainer.device):
         leaves[key].assign(value)
     return trainer
 
@@ -106,7 +114,8 @@ def program_readings(trainer, config: dict, mix: dict, seed: int) -> tuple[dict,
     t0 = time.perf_counter()
     update = {}
     with torch.no_grad():
-        for key, start in inputs.iter_weights(config["arch"], seed, trainer.device):
+        for key, start in inputs.iter_weights(inputs.config_specs(config), seed,
+                                              trainer.device):
             leaf = leaves[key]
             update[key] = torch.stack([torch.linalg.vector_norm(p - s) for p, s in
                                        zip(leaf.parts, leaf.views(start))]).tolist()
@@ -126,8 +135,9 @@ def reference_readings(config: dict, mix: dict, seed: int, device, *,
     batches = [inputs.tokens(seed, s, config["batch"], mix["seq"], arch["vocab"])
                for s in range(mix["check_steps"])]
     return ref.train_steps(arch, config["hparams"], config["adamw"],
-                           inputs.weights(arch, seed, device), batches, precision=precision,
-                           half_batch=half_batch, rows=config["reference_rows"])
+                           inputs.weights(inputs.config_specs(config), seed, device), batches,
+                           precision=precision, half_batch=half_batch,
+                           rows=config["reference_rows"])
 
 
 def _worst(values) -> float:

@@ -8,6 +8,12 @@ paths (``embed/table``, ``periods/pos0/mixer/w_x``, ...), the tensors of a
 layer kind repeated over the periods stacked on a leading axis.  They are
 drawn on the device with one ``torch.Generator`` in a fixed order, one
 ``randn`` call per leaf, in float32 (the master weights' type).
+
+A configuration's leaves are its plain reference's to declare: where
+``bench/reference/<config's reference>.py`` defines ``leaf_specs(arch)``,
+that list is the configuration's (:func:`config_specs`); otherwise
+:func:`leaf_specs` here, the plain ``lm`` reference's layout, which holds
+every expert and no shared expert, conv bias or tied head.
 """
 from __future__ import annotations
 
@@ -16,7 +22,13 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["padded_vocab", "leaf_specs", "iter_weights", "weights", "tokens"]
+from bench import registry
+
+__all__ = ["padded_vocab", "leaf_specs", "config_specs", "iter_weights", "weights", "tokens"]
+
+#: ``arch`` keys of an expert-parallel share that :func:`leaf_specs` and the
+#: plain ``lm`` reference do not implement (0, their default, means none)
+SHARE_KEYS = ("moe_experts_held", "moe_shared_d_ff")
 
 
 def padded_vocab(arch: dict) -> int:
@@ -40,6 +52,11 @@ def leaf_specs(arch: dict) -> list[tuple[str, tuple, str, float]]:
     ``normal`` (``scale`` times N(0, 1)), ``ones``, ``a_log`` (log of
     U(1, 16)) or ``dt_bias`` (the inverse softplus of a step drawn
     log-uniformly in [1e-3, 1e-1]), as Mamba-2 initialises them."""
+    share = [k for k in SHARE_KEYS if arch.get(k, 0)]
+    if share:
+        raise ValueError(f"{arch['name']}: the default leaf list holds every expert and no "
+                         f"shared expert, so it cannot take {share}; such a configuration names "
+                         f"a reference of its own that defines leaf_specs(arch)")
     if arch["tp"] != 1:
         raise ValueError("the benchmark runs its configurations at tp=1 (no padded heads)")
     d, vp = arch["d_model"], padded_vocab(arch)
@@ -97,15 +114,26 @@ def leaf_specs(arch: dict) -> list[tuple[str, tuple, str, float]]:
     return sorted(specs)
 
 
-def iter_weights(arch: dict, seed: int, device):
-    """Yield (key, float32 tensor) for every leaf in :func:`leaf_specs`'
-    order; the same ``seed`` gives the same tensors on the same device."""
+def config_specs(config: dict) -> list[tuple[str, tuple, str, float]]:
+    """The leaves of a configuration (a ``bench/configs/<name>.json`` dict):
+    its reference's ``leaf_specs(arch)`` where the reference defines one,
+    else :func:`leaf_specs`."""
+    own = getattr(registry.reference(config["reference"]), "leaf_specs", None)
+    return (own or leaf_specs)(config["arch"])
+
+
+def iter_weights(specs: list, seed: int, device):
+    """Yield (key, float32 tensor) for every leaf of ``specs`` (from
+    :func:`config_specs`), in its order; the same ``seed`` gives the same
+    tensors on the same device.  ``zeros`` and ``ones`` draw nothing."""
     g = torch.Generator(device).manual_seed(int(seed))
-    for key, shape, init, scale in leaf_specs(arch):
+    for key, shape, init, scale in specs:
         if init == "normal":
             t = torch.randn(shape, generator=g, device=device).mul_(scale)
         elif init == "ones":
             t = torch.ones(shape, device=device)
+        elif init == "zeros":
+            t = torch.zeros(shape, device=device)
         elif init == "a_log":
             t = torch.rand(shape, generator=g, device=device).mul_(15).add_(1).log_()
         elif init == "dt_bias":
@@ -117,9 +145,9 @@ def iter_weights(arch: dict, seed: int, device):
         yield key, t
 
 
-def weights(arch: dict, seed: int, device) -> dict[str, torch.Tensor]:
+def weights(specs: list, seed: int, device) -> dict[str, torch.Tensor]:
     """Every leaf of :func:`iter_weights`, as a dict."""
-    return dict(iter_weights(arch, seed, device))
+    return dict(iter_weights(specs, seed, device))
 
 
 def tokens(seed: int, step: int, batch: int, seq: int, vocab: int) -> np.ndarray:

@@ -29,7 +29,11 @@ tensor, the step below the configurations' bfloat16: the control).
 
 The configuration is the ``arch`` dict of the benchmark's configuration
 file (``bench/configs/<name>.json``): its layer kinds ``mamba`` and ``attn``,
-feed-forward kinds ``moe``, ``mlp`` and none, at ``tp`` 1.
+feed-forward kinds ``moe``, ``mlp`` and none, at ``tp`` 1, every expert
+held and no shared expert.  It refuses a configuration that sets
+``moe_experts_held`` or ``moe_shared_d_ff``, whose layers it would compute
+only in part; such a configuration brings a reference of its own, which
+declares its leaves (``leaf_specs(arch)``, see :mod:`bench.inputs`).
 """
 from __future__ import annotations
 
@@ -326,6 +330,11 @@ def train_steps(arch: dict, hparams: dict, adamw: dict, w: dict, batches: list,
     of the first step's gradient before (``raw_grad``) and after
     (``first_grad``) clipping and of the parameters' change over all the
     steps."""
+    share = [k for k in ("moe_experts_held", "moe_shared_d_ff") if arch.get(k, 0)]
+    if share:
+        raise ValueError(f"{arch['name']}: the plain lm reference implements no expert share and "
+                         f"no shared expert, so it cannot follow {share}; name a reference of "
+                         f"the configuration's own")
     q = _rounder(precision)
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False

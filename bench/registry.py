@@ -1,9 +1,11 @@
 """Finds the benchmark's pieces by name: ``BENCHMARK.json`` at the root of
 the checkout, and under ``bench/`` one file per configuration
 (``configs/<name>.json``), traffic mix (``traffic/<name>.json``), kind of
-work (``drivers/<name>.py``), plain reference (``reference/<name>.py``) and
-per-layer metric (``metrics/<name>.py``).  A later cell, mix or metric is a
-new file and a new entry; nothing here names one.
+work (``drivers/<name>.py``), plain reference (``reference/<name>.py``,
+whose ``leaf_specs(arch)``, where it defines one, lists the configuration's
+weights: :func:`bench.inputs.config_specs`) and per-layer metric
+(``metrics/<name>.py``).  A later cell, mix, model or metric is a new file
+and a new entry; nothing here names one.
 
 A quantity that cells of different pace report under metrics of their own
 (each with its own bound, or moving its own end-to-end metric) is named
