@@ -1,6 +1,11 @@
 """Assigned-architecture registry: one module per architecture, each exporting
 ``CONFIG`` (the exact published configuration) and ``SMOKE`` (a reduced
-same-family configuration for CPU smoke tests)."""
+same-family configuration for CPU smoke tests).
+
+``ARCH_NAMES`` are the architectures the JAX package has too; ``get_config``
+also knows the port's own (``PORT_ARCH_NAMES``: granite-4.0-h-small, whose
+held expert share, shared expert, NoPE attention, muP multipliers and tied
+head the JAX package has not)."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +23,7 @@ ARCH_IDS = [
     "mamba2_370m",
     "jamba_1_5_large_398b",
     "seamless_m4t_large_v2",
+    "granite_4_0_h_small",
 ]
 
 # public ids use dashes/dots like the assignment sheet
@@ -35,6 +41,10 @@ _ALIASES = {
 }
 
 ARCH_NAMES = list(_ALIASES)
+
+# the port's own configurations
+_ALIASES["granite-4.0-h-small"] = "granite_4_0_h_small"
+PORT_ARCH_NAMES = ["granite-4.0-h-small"]
 
 
 def _module(name: str):

@@ -249,24 +249,45 @@ class Counters:
     Totals are exact by construction (integer tile/burst/element counts;
     byte figures from ``BurstModel.burst_bytes`` sums), which is what lets
     :meth:`TraceRecorder.reconcile` compare them *equal*, not close, to
-    the plan accounting."""
+    the plan accounting.
+
+    :meth:`add_device` adds a 0-d device tensor without reading it (a
+    training step's counts, which a read would synchronize): the counter
+    keeps a running device sum and becomes a number, added to its host
+    total, when it is first read."""
 
     def __init__(self) -> None:
         self._vals: dict[str, float] = {}
+        self._pending: dict[str, Any] = {}
 
     def add(self, name: str, value: float = 1) -> None:
         self._vals[name] = self._vals.get(name, 0) + value
 
+    def add_device(self, name: str, value) -> None:
+        """Add the 0-d tensor ``value`` to ``name``, read when the counters
+        are."""
+        value = value.detach()
+        have = self._pending.get(name)
+        self._pending[name] = value if have is None else have + value
+
+    def _settle(self) -> None:
+        pending, self._pending = self._pending, {}
+        for name, t in pending.items():
+            self.add(name, float(t.item()))
+
     def get(self, name: str, default: float = 0) -> float:
+        self._settle()
         return self._vals.get(name, default)
 
     def __getitem__(self, name: str) -> float:
+        self._settle()
         return self._vals[name]
 
     def __contains__(self, name: str) -> bool:
-        return name in self._vals
+        return name in self._vals or name in self._pending
 
     def as_dict(self) -> dict[str, float]:
+        self._settle()
         return dict(sorted(self._vals.items()))
 
     def __repr__(self) -> str:

@@ -11,6 +11,10 @@ Layer kinds:
   layers).
 
 FFN kinds: ``mlp`` (SwiGLU), ``moe`` (top-k experts), ``none``.
+
+A configuration's ``residual_multiplier`` (where it is not 1) scales the
+output of each ``attn`` or ``mamba`` mixer and of each FFN before its
+residual add.
 """
 from __future__ import annotations
 
@@ -104,7 +108,7 @@ def spec_position(kind: str, fk: str, cfg: ArchConfig) -> dict:
         s["cross"] = spec_attention(cfg)
     if fk != "none":
         s["norm2"] = spec_norm()
-        s["ffn"] = spec_moe() if fk == "moe" else spec_mlp()
+        s["ffn"] = spec_moe(cfg) if fk == "moe" else spec_mlp()
     return s
 
 
@@ -164,6 +168,11 @@ def _self(m: Attention, h, mode: str, cache: dict | None, ctx: dict) -> torch.Te
     return y
 
 
+def _branch(cfg: ArchConfig, y: torch.Tensor) -> torch.Tensor:
+    """A branch's output as the residual stream takes it."""
+    return y if cfg.residual_multiplier == 1.0 else y * cfg.residual_multiplier
+
+
 def apply_position(
     block: Block,
     x: torch.Tensor,
@@ -176,9 +185,10 @@ def apply_position(
     The aux loss is the MoE's load-balance loss (a float32 0-d tensor), else
     0.0 (no launch on the card for layers without experts)."""
     aux = 0.0
+    cfg = block.cfg
     h = rms_norm(x, block.norm1)
     if block.kind == "attn":
-        x = x + _self(block.mixer, h, mode, cache, ctx)
+        x = x + _branch(cfg, _self(block.mixer, h, mode, cache, ctx))
     elif block.kind == "mamba":
         if mode == "decode":
             y, _ = mamba_decode(block.mixer, h, cache["ssm"])
@@ -186,7 +196,7 @@ def apply_position(
             y, _ = mamba_prefill(block.mixer, h, cache["ssm"])
         else:
             y = mamba_train(block.mixer, h)
-        x = x + y
+        x = x + _branch(cfg, y)
     elif block.kind == "cross":
         y = _cross(block.mixer, h, mode, cache, ctx)
         x = x + torch.tanh(block.gate).to(y.dtype) * y
@@ -200,5 +210,5 @@ def apply_position(
             y2, aux = moe(block.ffn, h2, ctx.get("dp_groups", ()))
         else:
             y2 = mlp(block.ffn, h2)
-        x = x + y2
+        x = x + _branch(cfg, y2)
     return x, (cache if mode != "train" else None), aux

@@ -1,6 +1,8 @@
 """Architecture configuration for the model zoo (the port's copy of
-``repro/models/config.py``; pure Python, identical fields and derived
-properties).
+``repro/models/config.py``; pure Python, the same fields and derived
+properties, and a few of the port's own: a card's share of an
+expert-parallel layer and a shared expert, a conv bias, NoPE attention, the
+muP multipliers and a tied head, each at a default that changes nothing).
 
 One frozen dataclass describes every assigned architecture (dense / MoE /
 SSM / hybrid / enc-dec / VLM).  Layer stacks are expressed as repeating
@@ -63,12 +65,25 @@ class ArchConfig:
     moe_d_ff: int = 0  # expert hidden width (defaults to d_ff)
     moe_capacity_factor: float = 1.25
     moe_group_size: int = 256  # routing group (tokens) for dispatch einsums
+    # a card's share of an expert-parallel layer: the experts it holds of the
+    # router's ``moe_experts`` (0: every one), and a shared expert's width
+    # (a SwiGLU every token passes; 0: none).  Port-only fields.
+    moe_experts_held: int = 0
+    moe_shared_d_ff: int = 0
     # --- SSM (mamba2) --------------------------------------------------------
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_chunk: int = 128
+    ssm_conv_bias: bool = False  # a bias on each of the x, B and C filters
+    # --- attention and muP multipliers (port-only; the defaults change nothing)
+    nope: bool = False  # no position embedding (no RoPE) in self-attention
+    attention_multiplier: float = 0.0  # the score scale; 0: head_dim ** -0.5
+    embedding_multiplier: float = 1.0  # on the embedding's output
+    residual_multiplier: float = 1.0  # on each mixer and FFN branch before the residual add
+    logits_scaling: float = 1.0  # the logits are divided by it
+    tie_embeddings: bool = False  # the output head is the token table's transpose
     # --- encoder-decoder ----------------------------------------------------
     enc_layers: int = 0  # encoder depth (decoder depth = n_layers)
     # --- multimodal stub frontend -------------------------------------------
@@ -99,6 +114,9 @@ class ArchConfig:
         for p in self.moe_positions:
             if not (0 <= p < len(self.period)):
                 raise ValueError(f"{self.name}: moe position {p} out of period")
+        if not 0 <= self.moe_experts_held <= self.moe_experts:
+            raise ValueError(f"{self.name}: moe_experts_held {self.moe_experts_held} of "
+                             f"{self.moe_experts} experts")
 
     @property
     def n_periods(self) -> int:
@@ -141,6 +159,16 @@ class ArchConfig:
         return self.moe_d_ff or self.d_ff
 
     @property
+    def experts_held(self) -> int:
+        """The experts a MoE layer holds (all of them unless a share)."""
+        return self.moe_experts_held or self.moe_experts
+
+    @property
+    def score_scale(self) -> float:
+        """Attention's score scale."""
+        return self.attention_multiplier or self.head_dim ** -0.5
+
+    @property
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
 
@@ -158,10 +186,12 @@ class ArchConfig:
         return True  # all assigned archs generate tokens (enc-dec included)
 
     def param_count(self) -> int:
-        """Analytic parameter count (unpadded, for 6ND MODEL_FLOPS)."""
+        """Analytic parameter count (unpadded, for 6ND MODEL_FLOPS): a tied
+        table once, the held experts of a share, a shared expert."""
         d, v = self.d_model, self.vocab
         total = v * d  # embedding
-        total += v * d  # unembed
+        if not self.tie_embeddings:
+            total += v * d  # unembed
         per_period = 0
         for i, kind in enumerate(self.period):
             if kind in ("attn", "cross"):
@@ -176,8 +206,9 @@ class ArchConfig:
                 per_period += d * n * 2 + d * h  # w_B, w_C, w_dt
                 per_period += din * d  # out_proj
             if i in self.moe_positions:
-                per_period += self.moe_experts * 3 * d * self.expert_d_ff
+                per_period += self.experts_held * 3 * d * self.expert_d_ff
                 per_period += d * self.moe_experts  # router
+                per_period += 3 * d * self.moe_shared_d_ff
             elif kind != "mamba":
                 per_period += 3 * d * self.d_ff
         total += self.n_periods * per_period
@@ -190,11 +221,16 @@ class ArchConfig:
         return total
 
     def active_param_count(self) -> int:
-        """Active parameters per token (MoE: top-k experts only)."""
+        """Active parameters per token (MoE: top-k experts only; of a share,
+        the ``moe_top_k × held / moe_experts`` experts a token meets on this
+        card under uniform routing, a fraction where that is not whole)."""
         if not self.moe_experts:
             return self.param_count()
         full = self.param_count()
         n_moe = self.n_periods * len(self.moe_positions)
-        all_experts = n_moe * self.moe_experts * 3 * self.d_model * self.expert_d_ff
-        active = n_moe * self.moe_top_k * 3 * self.d_model * self.expert_d_ff
+        expert = 3 * self.d_model * self.expert_d_ff
+        all_experts = n_moe * self.experts_held * expert
+        met, rest = divmod(self.moe_top_k * self.experts_held * expert, self.moe_experts)
+        active = n_moe * (self.moe_top_k * self.experts_held * expert / self.moe_experts
+                          if rest else met)
         return full - all_experts + active

@@ -209,10 +209,11 @@ def _project_qkv(m: Attention, x, kv_x, q_positions, kv_positions):
     return q, k, v
 
 
-def _chunked_attention(q, k, v, *, causal: bool, chunk: int):
+def _chunked_attention(q, k, v, *, causal: bool, chunk: int, scale: float):
     """Flash-style attention in plain PyTorch: a loop over query chunks, an
     inner loop over key chunks with an f32 online softmax (the reference's
-    two nested scans), masked causally when ``causal``.  No (S, S) tensor is
+    two nested scans), masked causally when ``causal``; scores scaled by
+    ``scale``.  No (S, S) tensor is
     materialised."""
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
@@ -223,7 +224,6 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int):
     qf = F.pad(q, (0, 0, 0, 0, 0, qpad)).float()
     kf = F.pad(k, (0, 0, 0, 0, 0, kpad)).float()
     vf = F.pad(v, (0, 0, 0, 0, 0, kpad)).float()
-    scale = Dh ** -0.5
     kv_heads = k.shape[2]
     g = H // kv_heads
 
@@ -277,7 +277,8 @@ def attention(
     prefill).  Causal self-attention with RoPE by default; cross-attention
     takes K/V from ``kv_x`` (``causal=False, rope=False`` in the VLM and
     decoder layers; with RoPE only the queries rotate); the encoder runs
-    ``causal=False, rope=True``.
+    ``causal=False, rope=True``.  A ``nope`` configuration rotates nothing;
+    the scores take the configuration's ``score_scale``.
 
     With ``cache``, the sequence's K/V are written into its blocks in place
     (positions past the sequence become zeros) and the cache is returned."""
@@ -285,10 +286,11 @@ def attention(
     src = x if kv_x is None else kv_x
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
+    rope = rope and not m.cfg.nope
     qpos = positions if rope else None
     kpos = positions if rope and kv_x is None else None
     q, k, v = _project_qkv(m, x, src, qpos, kpos)
-    out = _chunked_attention(q, k, v, causal=causal, chunk=chunk)
+    out = _chunked_attention(q, k, v, causal=causal, chunk=chunk, scale=m.cfg.score_scale)
     if cache is not None:
         nb, bs = cache.k.shape[1], cache.k.shape[3]
         if S > nb * bs:
@@ -316,12 +318,17 @@ def decode_attention_blocks(
     The new token's K/V are appended with a single in-block store per head
     (in place); attention over the valid prefix ``pos + 1`` runs the
     ``decode_attention`` kernel.  ``position`` may be per lane (continuous
-    batching): each sequence writes and masks at its own offset."""
+    batching): each sequence writes and masks at its own offset.  The kernel
+    scales scores by ``Dh ** -0.5``; another ``score_scale`` is put into the
+    queries (in float32, rounded once), a ``nope`` configuration rotates
+    nothing."""
     B = x.shape[0]
     cfg = m.cfg
     pos = torch.as_tensor(position, device=x.device).long()
-    qpos = pos[:, None] if pos.dim() == 1 else pos[None, None]
+    qpos = None if cfg.nope else pos[:, None] if pos.dim() == 1 else pos[None, None]
     q, k, v = _project_qkv(m, x, x, qpos, qpos)
+    if cfg.attention_multiplier:
+        q = (q.float() * (cfg.attention_multiplier * cfg.head_dim ** 0.5)).to(q.dtype)
     append_token(cache.k, cache.v, k[:, 0], v[:, 0], pos)
     lengths = (pos + 1).expand(B)
     out = decode_attention(q[:, 0].contiguous(), cache.k, cache.v, lengths)  # (B, Hq, Dh)
@@ -349,7 +356,7 @@ def decode_cross_attention(
     hkv = k.shape[2]
     g = q.shape[2] // hkv
     qg = q.reshape(B, hkv, g, cfg.head_dim).float()
-    s = torch.einsum("bhgk,bshk->bhgs", qg, k.float()) * (cfg.head_dim ** -0.5)
+    s = torch.einsum("bhgk,bshk->bhgs", qg, k.float()) * cfg.score_scale
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshk->bhgk", w, v.float()).reshape(B, 1, hkv * g, cfg.head_dim)
     return torch.einsum("bshk,hkd->bsd", out.to(cd), m.wo.to(cd))
@@ -402,7 +409,8 @@ def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
 
 class Embedding(nn.Module):
     """Token table (padded_vocab, d) and output head (d, padded_vocab) in
-    ``dtype`` (default: the compute dtype)."""
+    ``dtype`` (default: the compute dtype); with ``tie_embeddings`` no head
+    (the table's transpose is read in its place)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
         super().__init__()
@@ -411,25 +419,39 @@ class Embedding(nn.Module):
         vp, d = cfg.padded_vocab, cfg.d_model
         cd = dtype or _cd(cfg)
         self.table = _param(torch.zeros((vp, d), dtype=cd, device=device))
-        self.head = _param(torch.zeros((d, vp), dtype=cd, device=device))
+        if not cfg.tie_embeddings:
+            self.head = _param(torch.zeros((d, vp), dtype=cd, device=device))
         if generator is not None:
             with torch.no_grad():
                 dev = self.table.device
                 self.table.copy_(_normal((vp, d), 1.0, cd, generator, dev))
-                self.head.copy_(_normal((d, vp), d ** -0.5, cd, generator, dev))
+                if not cfg.tie_embeddings:
+                    self.head.copy_(_normal((d, vp), d ** -0.5, cd, generator, dev))
 
 
-def spec_embedding() -> dict:
+def spec_embedding(cfg: ArchConfig | None = None) -> dict:
     # the table vocab-parallel only, as the reference (sharding d as well
     # made its gather degenerate to full-batch all-gathers)
+    if cfg is not None and cfg.tie_embeddings:
+        return {"table": P("model", None)}
     return {"table": P("model", None), "head": P(None, "model")}
 
 
 def embed(m: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the table in the compute dtype, times the
+    configuration's ``embedding_multiplier`` (where it is not 1)."""
     table = m.table  # read once: a sharded model gathers it on each read
-    return table.to(_cd(m.cfg))[tokens.to(table.device)]
+    x = table.to(_cd(m.cfg))[tokens.to(table.device)]
+    mult = m.cfg.embedding_multiplier
+    return x if mult == 1.0 else x * mult
 
 
 def unembed(m: Embedding, x: torch.Tensor) -> torch.Tensor:
+    """Logits (B, S, padded_vocab): ``x`` times the head (a tied model's
+    table, transposed), divided by the configuration's ``logits_scaling``
+    (where it is not 1)."""
     cd = _cd(m.cfg)
-    return x.to(cd) @ m.head.to(cd)  # (B, S, padded_vocab)
+    head = m.table.t() if m.cfg.tie_embeddings else m.head
+    logits = x.to(cd) @ head.to(cd)
+    scaling = m.cfg.logits_scaling
+    return logits if scaling == 1.0 else logits / scaling

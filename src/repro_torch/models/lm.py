@@ -127,7 +127,7 @@ def spec_lm(cfg: ArchConfig) -> dict:
         for i, kind in enumerate(cfg.period)
     }
     s = {
-        "embed": spec_embedding(),
+        "embed": spec_embedding(cfg),
         "periods": _stack_specs(period_spec),
         "final_norm": spec_norm(),
     }

@@ -57,8 +57,9 @@ class MambaCache:
 
 class Mamba2(nn.Module):
     """SSD mixer weights: the projections and conv kernels in ``dtype``
-    (default: the compute dtype); ``dt_bias``, ``A_log``, ``D`` and the norm
-    scale in float32."""
+    (default: the compute dtype), with ``ssm_conv_bias`` a bias per filter
+    (``conv_x_bias``, ``conv_B_bias``, ``conv_C_bias``, zeros at init);
+    ``dt_bias``, ``A_log``, ``D`` and the norm scale in float32."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
         super().__init__()
@@ -75,6 +76,9 @@ class Mamba2(nn.Module):
                       ("w_out", (din, d), din ** -0.5)]
         for name, shape, _ in self._mats:
             setattr(self, name, _param(torch.zeros(shape, dtype=cd, device=device)))
+        if cfg.ssm_conv_bias:
+            for name, width in (("conv_x_bias", din), ("conv_B_bias", n), ("conv_C_bias", n)):
+                setattr(self, name, _param(torch.zeros(width, dtype=cd, device=device)))
         self.dt_bias = _param(torch.zeros(h, device=device))
         self.A_log = _param(torch.zeros(h, device=device))  # a = -exp(A_log) = -1
         self.D = _param(torch.ones(h, device=device))
@@ -87,8 +91,9 @@ class Mamba2(nn.Module):
 
 
 def spec_mamba(cfg: ArchConfig) -> dict:
-    """The reference's logical specs of the mixer's weights."""
-    return {
+    """The reference's logical specs of the mixer's weights (and the port's
+    conv biases)."""
+    s = {
         "w_x": P("data", "model"),
         "w_z": P("data", "model"),
         "w_B": P("data", None),
@@ -103,11 +108,16 @@ def spec_mamba(cfg: ArchConfig) -> dict:
         "norm": spec_norm(),
         "w_out": P("model", "data"),
     }
+    if cfg.ssm_conv_bias:
+        s.update(conv_x_bias=P("model"), conv_B_bias=P(None), conv_C_bias=P(None))
+    return s
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = None):
-    """Depthwise causal conv via K shifted adds, summed in order in x's dtype.
-    x: (B,S,C); w: (K,C).  ``tail``: (B, K-1, C) history for decode."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = None,
+                 bias: torch.Tensor | None = None):
+    """Depthwise causal conv via K shifted adds, summed in order in x's dtype,
+    plus ``bias`` (C,) where there is one, then SiLU.  x: (B,S,C); w: (K,C).
+    ``tail``: (B, K-1, C) history for decode."""
     K = w.shape[0]
     w = w.to(x.dtype)
     if tail is None:
@@ -118,7 +128,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = N
     out = xp[:, 0:S, :] * w[0][None, None, :]
     for j in range(1, K):
         out = out + xp[:, j:j + S, :] * w[j][None, None, :]
+    if bias is not None:
+        out = out + bias.to(x.dtype)
     return silu(out)
+
+
+def _conv_bias(m: Mamba2, name: str) -> torch.Tensor | None:
+    return getattr(m, f"{name}_bias") if m.cfg.ssm_conv_bias else None
 
 
 def _projections(m: Mamba2, x: torch.Tensor):
@@ -155,9 +171,9 @@ def _mamba_full(m: Mamba2, x: torch.Tensor):
     B, S, _ = x.shape
     h, pd = cfg.ssm_heads, cfg.ssm_head_dim
     xi, z, Bm, Cm, dt = _projections(m, x)
-    xi_c = _causal_conv(xi, m.conv_x)
-    Bm_c = _causal_conv(Bm, m.conv_B)
-    Cm_c = _causal_conv(Cm, m.conv_C)
+    xi_c = _causal_conv(xi, m.conv_x, bias=_conv_bias(m, "conv_x"))
+    Bm_c = _causal_conv(Bm, m.conv_B, bias=_conv_bias(m, "conv_B"))
+    Cm_c = _causal_conv(Cm, m.conv_C, bias=_conv_bias(m, "conv_C"))
     loga, dtp = _decays(m, dt)
     xh = xi_c.reshape(B, S, h, pd) * dtp[..., None].to(xi_c.dtype)
     y, state = _ssd(xh, loga, Bm_c, Cm_c, cfg.ssm_chunk)
@@ -192,9 +208,9 @@ def mamba_decode(m: Mamba2, x: torch.Tensor, cache: MambaCache) -> tuple[torch.T
     B = x.shape[0]
     h, pd = cfg.ssm_heads, cfg.ssm_head_dim
     xi, z, Bm, Cm, dt = _projections(m, x)
-    xi_c = _causal_conv(xi, m.conv_x, tail=cache.conv_x)
-    Bm_c = _causal_conv(Bm, m.conv_B, tail=cache.conv_B)
-    Cm_c = _causal_conv(Cm, m.conv_C, tail=cache.conv_C)
+    xi_c = _causal_conv(xi, m.conv_x, tail=cache.conv_x, bias=_conv_bias(m, "conv_x"))
+    Bm_c = _causal_conv(Bm, m.conv_B, tail=cache.conv_B, bias=_conv_bias(m, "conv_B"))
+    Cm_c = _causal_conv(Cm, m.conv_C, tail=cache.conv_C, bias=_conv_bias(m, "conv_C"))
     for tail, new in ((cache.conv_x, xi), (cache.conv_B, Bm), (cache.conv_C, Cm)):
         tail.copy_(torch.cat([tail[:, 1:], new.to(tail.dtype)], dim=1))
     loga, dtp = _decays(m, dt)  # (B,1,H)

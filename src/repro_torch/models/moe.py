@@ -23,11 +23,26 @@ count, each rank's tokens must make whole groups (else a group would span
 ranks, and the call raises), and the aux loss's two means are all-reduced,
 differentiably, before their product.
 
+A layer may hold a share of the experts, as one rank of an expert-parallel
+group does (``moe_experts_held`` of the router's ``moe_experts``, from
+``first_expert``): it routes every token over all the experts, with the
+capacity the whole layer's, and computes only its own experts' part of the
+output; its dispatch and combine span only those experts.  Nothing stands
+in for the other ranks' experts: the sum of every rank's output is the
+whole layer's.  The aux loss is over all the experts.  A shared expert
+(``moe_shared_d_ff``), a SwiGLU, adds its output for every token.
+
 Under an installed ``obs.TraceRecorder`` a call records ``moe.dispatch``
 (the routing, from the router's logits through the capacity loop to the
-expert buffers) and ``moe.combine`` (the combine product and the aux loss);
-the experts' three products lie between the two, in neither.  A remat
-recompute records them again, on the thread autograd runs it on.
+expert buffers), ``moe.combine`` (the combine product and the aux loss) and
+``moe.shared`` (the shared expert and its add); the experts' three products
+lie between the first two, in neither.  A remat recompute records them
+again, on the thread autograd runs it on.  Each call adds to the
+recorder's counters ``moe.slots`` (its tokens' token-choice pairs),
+``moe.slots_held`` (those routed to the experts it holds) and
+``moe.dropped_held`` (those past an expert's capacity), the last two as
+device tensors that become numbers when the counters are read: nothing
+synchronizes inside the step.
 """
 from __future__ import annotations
 
@@ -42,51 +57,66 @@ from repro_torch.core.cfa.api import resolve_device
 from repro_torch.distributed.sharding import P
 
 from .config import ArchConfig
-from .layers import _cd, _normal, _param, silu
+from .layers import MLP, _cd, _normal, _param, mlp, silu, spec_mlp
 
 __all__ = ["MoE", "init_moe", "spec_moe", "moe", "top_k"]
 
 
 class MoE(nn.Module):
-    """Router (d, E) in float32; expert weights w1/w3 (E, d, f) and w2
-    (E, f, d) in ``dtype`` (default: the compute dtype)."""
+    """Router (d, E) in float32; the held experts' weights w1/w3 (held, d,
+    f) and w2 (held, f, d) in ``dtype`` (default: the compute dtype), expert
+    ``first_expert + i`` at index i; a shared expert ``shared`` (an ``MLP``
+    of width ``moe_shared_d_ff``) where the configuration has one."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None):
+    def __init__(self, cfg: ArchConfig, *, device="cuda", generator=None, dtype=None,
+                 first_expert: int = 0):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.moe_experts
+        d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.experts_held
+        if not 0 <= first_expert <= cfg.moe_experts - e:
+            raise ValueError(f"experts {first_expert}..{first_expert + e - 1} of "
+                             f"{cfg.moe_experts}")
+        self.first_expert = first_expert
         cd = dtype or _cd(cfg)
-        self.router = _param(torch.zeros((d, e), device=device))
+        self.router = _param(torch.zeros((d, cfg.moe_experts), device=device))
         self.w1 = _param(torch.zeros((e, d, f), dtype=cd, device=device))
         self.w3 = _param(torch.zeros((e, d, f), dtype=cd, device=device))
         self.w2 = _param(torch.zeros((e, f, d), dtype=cd, device=device))
         if generator is not None:
             with torch.no_grad():
                 dev = self.router.device
-                self.router.copy_(_normal((d, e), d ** -0.5, torch.float32, generator, dev))
+                self.router.copy_(_normal((d, cfg.moe_experts), d ** -0.5, torch.float32,
+                                          generator, dev))
                 self.w1.copy_(_normal((e, d, f), d ** -0.5, cd, generator, dev))
                 self.w3.copy_(_normal((e, d, f), d ** -0.5, cd, generator, dev))
                 self.w2.copy_(_normal((e, f, d), f ** -0.5, cd, generator, dev))
+        if cfg.moe_shared_d_ff:
+            self.shared = MLP(cfg, cfg.moe_shared_d_ff, device=device, generator=generator,
+                              dtype=dtype)
 
 
 def init_moe(cfg: ArchConfig, *, generator: torch.Generator | None = None,
-             device="cuda", dtype=None) -> MoE:
+             device="cuda", dtype=None, first_expert: int = 0) -> MoE:
     """An MoE layer (the reference's ``init_moe``): weights drawn from
     ``generator``, or zeros to be loaded when it is None; on ``device``, the
-    CUDA device unless the caller asks for the CPU (a missing card raises)."""
-    return MoE(cfg, device=device, generator=generator, dtype=dtype)
+    CUDA device unless the caller asks for the CPU (a missing card raises);
+    of a share, the experts from ``first_expert``."""
+    return MoE(cfg, device=device, generator=generator, dtype=dtype, first_expert=first_expert)
 
 
-def spec_moe() -> dict:
+def spec_moe(cfg: ArchConfig | None = None) -> dict:
     """The reference's logical specs: experts over 'model' (EP), the d_model
-    dim FSDP over 'data'."""
-    return {
+    dim FSDP over 'data'; a shared expert as an MLP."""
+    s = {
         "router": P("data", None),
         "w1": P("model", "data", None),
         "w3": P("model", "data", None),
         "w2": P("model", None, "data"),
     }
+    if cfg is not None and cfg.moe_shared_d_ff:
+        s["shared"] = spec_mlp()
+    return s
 
 
 def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -114,6 +144,7 @@ def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tens
     cfg = m.cfg
     B, S, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
+    held, first = cfg.experts_held, m.first_expert
     cd = _cd(cfg)
     T = B * S
     n_dp = math.prod(g.size() for g in dp_groups)
@@ -141,19 +172,31 @@ def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tens
         cap = -(-cap // 4) * 4  # the reference pads capacity for lane alignment
         slots = torch.arange(cap, device=x.device)
 
-        counts = torch.zeros((G, 1, e), device=x.device)
+        # the held experts' queues alone: an expert's positions count only
+        # the tokens routed to it, so the other experts' need not be built
+        counts = torch.zeros((G, 1, held), device=x.device)
         dispatch = combine = None
         for j in range(k):  # k is small and static: unrolled priority assignment
-            oh = F.one_hot(top_idx[..., j], e).float() * valid[..., None]  # (G, gs, E)
+            if held == e:
+                oh = F.one_hot(top_idx[..., j], e).float() * valid[..., None]  # (G, gs, E)
+            else:
+                local = top_idx[..., j] - first
+                mine = ((local >= 0) & (local < held)).float() * valid
+                oh = F.one_hot(local.clamp(0, held - 1), held).float() * mine[..., None]
             pos = counts + torch.cumsum(oh, dim=1) - oh  # position if admitted
             admitted = (pos < cap).float() * oh
             counts = counts + oh.sum(dim=1, keepdim=True)
             # one_hot(pos, cap) with a zero row for pos >= cap (over capacity)
-            slot = (pos.long()[..., None] == slots).float()  # (G, gs, E, C)
+            slot = (pos.long()[..., None] == slots).float()  # (G, gs, held, C)
             disp_j = admitted[..., None] * slot
             comb_j = disp_j * top_w[..., j][..., None, None]
             dispatch = disp_j if dispatch is None else dispatch + disp_j
             combine = comb_j if combine is None else combine + comb_j
+        if rec is not None:
+            slots_held = counts.sum()
+            rec.counters.add("moe.slots", T * k)
+            rec.counters.add_device("moe.slots_held", slots_held)
+            rec.counters.add_device("moe.dropped_held", slots_held - dispatch.sum())
 
         dispatch, combine = dispatch.to(cd), combine.to(cd)
         # expert-facet buffers: one contiguous block of admitted tokens per expert
@@ -172,4 +215,7 @@ def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tens
             frac_tokens = _mean_over(frac_tokens, dp_groups, n_dp)
             frac_probs = _mean_over(frac_probs, dp_groups, n_dp)
         aux = e * torch.sum(frac_tokens * frac_probs)
-        return out, aux
+    if cfg.moe_shared_d_ff:
+        with obs.train_span(rec, "moe.shared"):
+            out = out + mlp(m.shared, x)
+    return out, aux
