@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cfa import obs
 from repro_torch.core.cfa.api import resolve_device
 from repro_torch.distributed.sharding import P
 from repro_torch.kernels.block_attention import append_token, decode_attention
@@ -214,7 +215,23 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int, scale: float):
     inner loop over key chunks with an f32 online softmax (the reference's
     two nested scans), masked causally when ``causal``; scores scaled by
     ``scale``.  No (S, S) tensor is
-    materialised."""
+    materialised.
+
+    Each (query chunk i, key chunk j) pair is classed by its positions
+    before it runs.  Under ``causal``, a pair whose first key lies past its
+    last query (``j * ck > (i + 1) * cq - 1``) is not visited: every score
+    in it is masked, so it would only scale ``l`` and ``acc`` by exp(0) = 1
+    and add zeros (key 0 is visible to every query, so ``m`` is finite by
+    then).  A pair that holds no padded key and, under ``causal``, whose
+    last key lies at or before its first query runs without the mask: there
+    ``torch.where`` would return its input.  Only the diagonal pairs and
+    those holding the padded last key chunk are masked.  The outputs and
+    the gradients of q, k and v are those of the loop over every pair, bit
+    for bit (up to the sign of an exact zero).
+
+    Under an installed ``obs.TraceRecorder`` a call adds its pairs to the
+    counters ``attention.chunk_pairs`` (nq * nk), ``attention.chunk_pairs_run``
+    and ``attention.chunk_pairs_masked`` (host integers)."""
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
     cq, ck = min(chunk, Sq), min(chunk, Sk)
@@ -236,27 +253,40 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int, scale: float):
     k_valid = k_pos < Sk
 
     outs = []
+    run = masked = 0
     for i in range(nq):
         qc, qp = qf[i], q_pos[i]  # (B, kvh, g, cq, Dh), (cq,)
         m = torch.full((B, kv_heads, g, cq), float("-inf"), device=dev)
         l = torch.zeros((B, kv_heads, g, cq), device=dev)
         acc = torch.zeros((B, kv_heads, g, cq, Dh), device=dev)
-        for j in range(nk):
+        # key chunks past the last visible one hold no key these queries see
+        seen = min(nk, ((i + 1) * cq - 1) // ck + 1) if causal else nk
+        for j in range(seen):
             kc, vc, kp, kval = kf[j], vf[j], k_pos[j], k_valid[j]
             s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
-            mask = kval[None, None, None, None, :]
-            if causal:
-                mask = mask & (qp[None, None, None, :, None] >= kp[None, None, None, None, :])
-            s = torch.where(mask, s, float("-inf"))
+            need_mask = (j == nk - 1 and kpad > 0) or (causal and (j + 1) * ck - 1 > i * cq)
+            if need_mask:
+                masked += 1
+                mask = kval[None, None, None, None, :]
+                if causal:
+                    mask = mask & (qp[None, None, None, :, None] >= kp[None, None, None, None, :])
+                s = torch.where(mask, s, float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
             alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
             pexp = torch.exp(s - m_safe[..., None])
-            pexp = torch.where(mask, pexp, 0.0)
+            if need_mask:
+                pexp = torch.where(mask, pexp, 0.0)
             l = l * alpha + pexp.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", pexp, vc)
             m = m_new
+        run += seen
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    rec = obs.active()
+    if rec is not None:
+        rec.counters.add("attention.chunk_pairs", nq * nk)
+        rec.counters.add("attention.chunk_pairs_run", run)
+        rec.counters.add("attention.chunk_pairs_masked", masked)
     # (nq, B, kvh, g, cq, Dh) -> (B, Sq, H, Dh)
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, nq * cq, H, Dh)
     return out[:, :Sq].to(q.dtype)
