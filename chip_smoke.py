@@ -373,12 +373,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from bench.counts import flops as bench_flops  # noqa: E402
+
 SEED = 0
 #: the H100 SXM's published peaks (NVIDIA data sheet, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-#: dense bf16 on the tensor cores (the same data sheet)
-PEAK_BF16_TC_FLOPS = 989e12
+PEAK_BYTES_PER_S = bench_flops.PEAK_BYTES_PER_S
+PEAK_FLOPS = {torch.float32: bench_flops.PEAK_F32_FLOPS, torch.float64: 34e12}
 MAIN_PROGRAM = "jacobi2d5p"
 MAIN_SPACE = (256, 1024, 1024)
 #: the compressed path's space: the full grid, the time axis cut (it runs no
@@ -3715,23 +3715,12 @@ def phase_dryrun_finish(procs: list) -> dict:
     return recs
 
 
-def _ssd_bwd_bound(B: int, T: int, H: int, P: int, N: int, L: int,
-                   esize: int) -> tuple[float, str, float]:
-    """(bound ms, what bounds it, the f32-pipe operations figure) of one
-    backward call: x, dy, the saved states, loga, B and C read once; dx,
-    dloga, dB and dC written once; against its products — per chunk 2 L^2 N
-    (G) + 4 L^2 N (dG B, dG^T C), per head and chunk 4 L^2 P (dy x^T, W^T dy)
-    + 8 L P N (dS, the facet term, dy^T S, x^T dS) — at the peak for the
-    inputs' type (the bf16 tensor cores for bf16), and always at the f32 peak
-    for the third value (the FP32-pipe figure)."""
-    nc = T // L
-    nbytes = (3 * B * T * H * P + 4 * B * T * N) * esize + B * nc * H * P * N * 4 \
-        + 2 * B * T * H * 4
-    flops = B * nc * (6 * L * L * N + H * (4 * L * L * P + 8 * L * P * N))
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_f32 = flops / PEAK_FLOPS[torch.float32] * 1e3
-    t_ops = flops / PEAK_BF16_TC_FLOPS * 1e3 if esize == 2 else t_f32
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_f32,)
+def _ssd_bound(flops: int, nbytes: int, esize: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, the FP32-pipe route's bound ms) of an SSD
+    call's counts (``bench.counts.flops``)."""
+    ms = bench_flops.bound_s(flops, nbytes, esize) * 1e3
+    by = "bytes" if ms == nbytes / bench_flops.PEAK_BYTES_PER_S * 1e3 else "operations"
+    return ms, by, flops / bench_flops.PEAK_F32_FLOPS * 1e3
 
 
 def _kernel_name(key: str) -> str:
@@ -3839,7 +3828,8 @@ def phase_train_timing(device) -> dict:
         fwd = _measure(lambda: ssd_scan(x, loga, Bm, C, chunk=L), iters)
         plain_ms = _time_ms(lambda: ssd_chunked_bwd_ref(x, loga, Bm, C, dy, None, L), 2,
                             warmup=1, repeats=3)[0]
-        bound_ms, bound_by, f32_ms = _ssd_bwd_bound(B, T, H, P, N, L, 2)
+        bound_ms, bound_by, f32_ms = _ssd_bound(
+            *bench_flops.ssd_scan_bwd_counts(B, T, H, P, N, L, 2), 2)
         plan = ssd_mod.backward_plan(B, T, H, P, N, L)
         shape = "the training shape" if B > 1 else "the serve shape"
         log(f"[timing] ssd_scan_bwd B={B} T={T} H={H} P={P} N={N} chunk={L} bfloat16 "
@@ -3874,22 +3864,6 @@ def _attn_bound(lengths: torch.Tensor, Hq: int, Hkv: int, D: int, esize: int,
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 4 * D * Hq * n_keys / PEAK_FLOPS[torch.float32] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _ssd_bound(B: int, T: int, H: int, P: int, N: int, L: int,
-               esize: int) -> tuple[float, str, float]:
-    """(bound ms, what bounds it, the f32-pipe operations figure): x, loga,
-    B, C, y and the state moved once, against 2 L^2 N flops per chunk plus
-    2 L^2 P + 4 L P N per head and chunk — at the bf16 tensor-core peak for
-    a bf16 call (the kernel's route), at the f32 peak for an f32 call; the
-    third value is always the flops at the f32 peak (the FP32-pipe route's
-    bound)."""
-    nbytes = (2 * B * T * H * P + 2 * B * T * N) * esize + B * T * H * 4 + B * H * P * N * 4
-    flops = B * (T // L) * (2 * L * L * N + H * (2 * L * L * P + 4 * L * P * N))
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_f32 = flops / PEAK_FLOPS[torch.float32] * 1e3
-    t_ops = flops / PEAK_BF16_TC_FLOPS * 1e3 if esize == 2 else t_f32
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_f32,)
 
 
 def phase_serve_timing(device, runs: dict) -> dict:
@@ -3968,7 +3942,8 @@ def phase_serve_timing(device, runs: dict) -> dict:
             f"{plan.smem} B of shared memory per CTA, {plan.ctas_per_sm} CTA(s) per SM")
         m = _measure(lambda: ssd_scan(x, loga, Bm, C, chunk=L), 20)
         plain_ms = _time_ms(lambda: ssd_chunked_ref(x, loga, Bm, C, L), 5, warmup=2)[0]
-        bound_ms, bound_by, f32_ms = _ssd_bound(Bb, T, H, P, N, L, 2)
+        bound_ms, bound_by, f32_ms = _ssd_bound(
+            *bench_flops.ssd_scan_counts(Bb, T, H, P, N, L, 2, states=False), 2)
         log(f"[timing] ssd_scan mamba2-370m prefill: B={Bb} T={T} H={H} P={P} N={N} chunk={L} "
             f"bfloat16: kernel {_fmt(m)}; plain {plain_ms:.6f} ms (eager CUDA events); bound "
             f"{bound_ms:.6f} ms ({bound_by}; tensor-core route), {bound_ms / m['ms']:.1%} of "

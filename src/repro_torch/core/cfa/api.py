@@ -42,6 +42,8 @@ from typing import Mapping, Sequence
 
 import torch
 
+from repro_torch.runtime import resolve_device
+
 from .autotune import LayoutCandidate, LayoutDecision
 from .bandwidth import AXI_ZC706, H100_HBM3, BandwidthReport, BurstModel
 from .compress import BlockCodec
@@ -134,19 +136,6 @@ def get_target(target: "Target | BurstModel | str") -> Target:
                 f"unknown target {target!r}; registered: {sorted(TARGETS)}"
             ) from None
     raise TypeError(f"target must be a Target, BurstModel or name: {target!r}")
-
-
-def resolve_device(device: "torch.device | str") -> torch.device:
-    """The torch device to compile for; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} needs a CUDA device, but "
-            f"torch.cuda.is_available() is False here; pass device='cpu' to "
-            f"run on the CPU (the kernels then run their plain PyTorch "
-            f"versions)"
-        )
-    return dev
 
 
 # --------------------------------------------------------------------------

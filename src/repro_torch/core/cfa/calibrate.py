@@ -65,6 +65,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.runtime import resolve_device
+
 from .bandwidth import AXI_ZC706, BurstModel, PortedPlan
 from .compress import get_codec, stored_bits
 from .multiport import best_repartition
@@ -179,9 +181,7 @@ def measure_runs(
         raise ValueError(f"burst lengths must be positive: {runs}")
     if not runs and compute_s == 0.0:
         return 0.0
-    from .api import resolve_device  # no CPU fallback for a CUDA device
-
-    dev = resolve_device(device)
+    dev = resolve_device(device)  # no CPU fallback for a CUDA device
     # wait for the device (the counterpart of block_until_ready); a CPU op
     # returns when it is done
     sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"

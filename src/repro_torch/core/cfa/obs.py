@@ -33,6 +33,8 @@ attributable timeline:
   ``train/loop.py`` and ``train/steps.py``, ``moe.dispatch`` /
   ``moe.combine`` from ``models/moe.py``, written to the process-wide
   recorder that ``with rec.installed():`` sets and :func:`active` returns.
+  That hub and the clock live in :mod:`repro_torch.runtime`; ``obs`` names
+  the same objects.
   Each span keeps the native id of the thread that opened it and the span
   open on that thread when it began, and :meth:`TraceRecorder.unix_us`
   puts it on the Unix clock of ``torch.profiler``'s Chrome trace, so
@@ -72,6 +74,9 @@ import time
 from pathlib import Path
 from typing import Any, Iterable, Mapping
 
+from repro_torch import runtime
+from repro_torch.runtime import NO_SPAN, active, now, train_span
+
 __all__ = [
     "Span",
     "Counters",
@@ -92,13 +97,8 @@ __all__ = [
 
 
 # --------------------------------------------------------------------------
-# The shared clock + measurement fidelity knobs
+# Measurement fidelity knobs (the shared clock is ``runtime.now``)
 # --------------------------------------------------------------------------
-
-#: the one wall-clock every timed path in the repo reads (``calibrate``'s
-#: measurement passes, ``passes.PassPipeline`` stage timing, the serving
-#: scheduler's tick accounting, and every recorded span)
-now = time.perf_counter
 
 _DEF_WARMUP = 1
 _DEF_REPEATS = 5
@@ -368,16 +368,10 @@ class TraceRecorder:
 
     # -- the process-wide recorder -----------------------------------------
 
-    @contextlib.contextmanager
     def installed(self):
-        """Make this the recorder :func:`active` returns, in every thread,
-        until the block ends (the one before it again after)."""
-        global _ACTIVE
-        before, _ACTIVE = _ACTIVE, self
-        try:
-            yield self
-        finally:
-            _ACTIVE = before
+        """``runtime.install(self)``: this is the recorder :func:`active`
+        returns, in every thread, until the block ends."""
+        return runtime.install(self)
 
     def track(self, phase: str) -> str:
         """The current port's lane for ``phase`` (fetch/compute/commit)."""
@@ -658,32 +652,6 @@ class TraceRecorder:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(self.to_chrome(), indent=1))
         return path
-
-
-#: the recorder the program's training span sites write to (None: tracing
-#: off).  A plain module global and not a context variable: autograd runs a
-#: remat recompute (``moe``'s spans) on its own device thread, which
-#: inherits no context.
-_ACTIVE: TraceRecorder | None = None
-
-#: what a span site enters when no recorder is installed (reused: nothing
-#: is allocated)
-NO_SPAN = contextlib.nullcontext()
-
-
-def active() -> TraceRecorder | None:
-    """The recorder installed by :meth:`TraceRecorder.installed`, or None."""
-    return _ACTIVE
-
-
-def train_span(rec: TraceRecorder | None, name: str, step: int | None = None):
-    """``rec``'s span ``name`` on the ``train`` track (``step`` in its
-    args when given), or :data:`NO_SPAN` when ``rec`` is None."""
-    if rec is None:
-        return NO_SPAN
-    if step is None:
-        return rec.span(name, track="train", cat="train")
-    return rec.span(name, track="train", cat="train", step=step)
 
 
 def chrome_trace(recorder: TraceRecorder) -> dict:

@@ -57,6 +57,8 @@ from typing import Any, Callable, Iterable, Mapping, Sequence
 
 import torch
 
+from repro_torch.runtime import resolve_device
+
 __all__ = [
     "P", "DP_AXES", "set_mesh", "get_mesh", "get_dp_axes", "get_drop_axes", "use_mesh",
     "sanitize_spec", "named", "constrain", "sanitize_tree", "batch_spec",
@@ -366,8 +368,6 @@ def port_mesh(n_ports: int, device: "torch.device | str" = "cuda",
     asks for the CPU; a missing card raises).  One CUDA stream per port."""
     if n_ports <= 0:
         raise ValueError(f"n_ports must be positive: {n_ports}")
-    from repro_torch.core.cfa.api import resolve_device
-
     dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:

@@ -19,7 +19,7 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.core.cfa.api import resolve_device
+from repro_torch.runtime import resolve_device
 
 S, M, B, D = 4, 8, 2, 64  # stages, microbatches, microbatch size, width
 

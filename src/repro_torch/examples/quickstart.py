@@ -25,8 +25,8 @@ import torch
 from repro_torch import cfa
 from repro_torch.core.cfa import (IterSpace, Tiling, bounding_box_plan, original_layout_plan,
                                   pack_facet)
-from repro_torch.core.cfa.api import resolve_device
 from repro_torch.kernels.stencil import execute_tiles
+from repro_torch.runtime import resolve_device
 
 PROGRAM = "jacobi2d5p"
 SPACE = (16, 32, 32)

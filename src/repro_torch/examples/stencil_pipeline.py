@@ -20,8 +20,8 @@ import torch
 
 from repro_torch import cfa
 from repro_torch.core.cfa import pack_facet
-from repro_torch.core.cfa.api import resolve_device
 from repro_torch.kernels.stencil import execute_tiles
+from repro_torch.runtime import resolve_device
 
 
 def stencil_pipeline(device="cuda") -> dict:

@@ -22,9 +22,9 @@ import time
 
 import torch
 
-from repro_torch.core.cfa.api import resolve_device
 from repro_torch.data.pipeline import PackedDocs
 from repro_torch.models.config import ArchConfig
+from repro_torch.runtime import resolve_device
 from repro_torch.train.loop import Trainer
 from repro_torch.train.steps import TrainHParams
 

@@ -45,7 +45,7 @@ _INT = ctypes.c_int
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: elements of a 16-byte vector
 _VEC = {torch.float32: 4, torch.bfloat16: 8}
-#: rms_norm's epsilon (``models.layers.rms_norm``'s default)
+#: rms_norm's epsilon (``kernels.elementwise.rms_norm``'s default)
 EPS = 1e-6
 #: threads per CTA at most, and the passes over a row a thread may make
 #: (``kMaxThreads`` and the CHUNKS instances in the source)

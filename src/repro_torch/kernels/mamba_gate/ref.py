@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.elementwise import rms_norm, silu
+
 __all__ = ["gated_rms_norm_ref", "gated_rms_norm_bwd_ref"]
 
 
@@ -23,10 +25,6 @@ def gated_rms_norm_ref(
 ) -> torch.Tensor:
     """``rms_norm((y + D xh) * silu(z), norm)`` in ``y``'s dtype (D cast to
     it first), (B, S, H*P)."""
-    # repro_torch.models imports its mamba2, which imports this package: a
-    # module-level import would be circular
-    from repro_torch.models.layers import rms_norm, silu
-
     B, S, h, pd = y.shape
     y = y + D[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, h * pd)
@@ -49,8 +47,6 @@ def gated_rms_norm_bwd_ref(
     float32 differs from it by its own arithmetic and one rounding of each
     gradient; one that rounds every step, as autograd through the plain
     version in bfloat16 does, differs by more."""
-    from repro_torch.models.layers import silu
-
     B, S, h, pd = y.shape
     d_r = D.to(y.dtype)
     u_r = (y + d_r[None, None, :, None] * xh).reshape(B, S, h * pd)
@@ -68,6 +64,6 @@ def gated_rms_norm_bwd_ref(
         u = held((y64 + d * xh64).reshape(B, S, h * pd), u_r)
         s = held(z64 * torch.sigmoid(z64), s_r)
         g = held(u * s, g_r)
-        # rms_norm's epsilon (models.layers.rms_norm)
+        # rms_norm's epsilon (kernels.elementwise.rms_norm)
         out = g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + 1e-6) * norm64
         return torch.autograd.grad(out, leaves, dout.double())

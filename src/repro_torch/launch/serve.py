@@ -25,10 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.cfa.api import resolve_device
 from repro_torch.kernels.block_attention import decode_attention
 from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.models.lm import init_lm, lm_decode, lm_prefill
+from repro_torch.runtime import resolve_device
 
 
 def _sync(device: torch.device) -> None:

@@ -21,8 +21,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.cfa.api import resolve_device
 from repro_torch.distributed.sharding import P
+from repro_torch.runtime import resolve_device
 
 from .config import ArchConfig
 from .layers import (

@@ -32,10 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.cfa import obs
-from repro_torch.core.cfa.api import resolve_device
+from repro_torch import runtime
 from repro_torch.distributed.sharding import P
 from repro_torch.kernels.block_attention import append_token, decode_attention
+from repro_torch.kernels.elementwise import rms_norm, silu
+from repro_torch.runtime import resolve_device
 
 from .config import ArchConfig
 
@@ -65,13 +66,6 @@ def spec_norm() -> dict:
     return {"scale": P(None)}
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * scale
-    return out.to(x.dtype)
-
-
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
     d = x.shape[-1]
@@ -82,15 +76,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the reference evaluates it, ``x * (1 / (1 +
-    exp(-x)))`` one operation at a time in ``x``'s dtype: in bfloat16 each
-    step rounds, as each jnp operation's result does.  ``F.silu`` rounds once
-    and differs from it in about a third of bfloat16 outputs by one unit,
-    enough to flip a near-tied MoE routing decision downstream."""
-    return x * (1 / (1 + torch.exp(-x)))
 
 
 def _normal(shape, scale: float, dtype: torch.dtype, generator, device) -> torch.Tensor:
@@ -229,7 +214,7 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int, scale: float):
     the gradients of q, k and v are those of the loop over every pair, bit
     for bit (up to the sign of an exact zero).
 
-    Under an installed ``obs.TraceRecorder`` a call adds its pairs to the
+    Under an installed recorder a call adds its pairs to the
     counters ``attention.chunk_pairs`` (nq * nk), ``attention.chunk_pairs_run``
     and ``attention.chunk_pairs_masked`` (host integers)."""
     B, Sq, H, Dh = q.shape
@@ -282,7 +267,7 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int, scale: float):
             m = m_new
         run += seen
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    rec = obs.active()
+    rec = runtime.active()
     if rec is not None:
         rec.counters.add("attention.chunk_pairs", nq * nk)
         rec.counters.add("attention.chunk_pairs_run", run)

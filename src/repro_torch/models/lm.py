@@ -52,8 +52,8 @@ from torch.nn.utils import parametrize
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.core.cfa.api import resolve_device
 from repro_torch.distributed.sharding import P, named
+from repro_torch.runtime import resolve_device
 
 from .blocks import apply_position, cache_position, ffn_kind, init_position, spec_position
 from .config import ArchConfig

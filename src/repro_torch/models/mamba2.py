@@ -18,10 +18,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.cfa.api import resolve_device
 from repro_torch.distributed.sharding import P
 from repro_torch.kernels.mamba_gate import gated_rms_norm
 from repro_torch.kernels.ssd import ssd_decode_step, ssd_scan
+from repro_torch.runtime import resolve_device
 
 from .config import ArchConfig
 from .layers import _cd, _normal, _param, rms_norm, silu, spec_norm

@@ -32,7 +32,7 @@ in for the other ranks' experts: the sum of every rank's output is the
 whole layer's.  The aux loss is over all the experts.  A shared expert
 (``moe_shared_d_ff``), a SwiGLU, adds its output for every token.
 
-Under an installed ``obs.TraceRecorder`` a call records ``moe.dispatch``
+Under an installed recorder a call records ``moe.dispatch``
 (the routing, from the router's logits through the capacity loop to the
 expert buffers), ``moe.combine`` (the combine product and the aux loss) and
 ``moe.shared`` (the shared expert and its add); the experts' three products
@@ -52,9 +52,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.cfa import obs
-from repro_torch.core.cfa.api import resolve_device
+from repro_torch import runtime
 from repro_torch.distributed.sharding import P
+from repro_torch.runtime import resolve_device
 
 from .config import ArchConfig
 from .layers import MLP, _cd, _normal, _param, mlp, silu, spec_mlp
@@ -152,8 +152,8 @@ def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tens
     if n_dp > 1 and T % gs:
         raise ValueError(f"a rank's {T} tokens do not make whole routing groups of {gs} "
                          f"(the global batch's {T * n_dp}): a group would span ranks")
-    rec = obs.active()
-    with obs.train_span(rec, "moe.dispatch"):
+    rec = runtime.active()
+    with runtime.train_span(rec, "moe.dispatch"):
         pad = (-T) % gs
         xt = x.reshape(T, d)
         if pad:
@@ -174,15 +174,14 @@ def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tens
 
         # the held experts' queues alone: an expert's positions count only
         # the tokens routed to it, so the other experts' need not be built
+        # (a whole layer holds them all, from 0).  Every choice's one-hot over
+        # them at once: a token routed elsewhere, or a pad, has a zero row
+        held_ids = torch.arange(first, first + held, device=x.device)
+        ohs = (top_idx[..., None] == held_ids) * valid[..., None, None]  # (G, gs, k, held)
         counts = torch.zeros((G, 1, held), device=x.device)
         dispatch = combine = None
         for j in range(k):  # k is small and static: unrolled priority assignment
-            if held == e:
-                oh = F.one_hot(top_idx[..., j], e).float() * valid[..., None]  # (G, gs, E)
-            else:
-                local = top_idx[..., j] - first
-                mine = ((local >= 0) & (local < held)).float() * valid
-                oh = F.one_hot(local.clamp(0, held - 1), held).float() * mine[..., None]
+            oh = ohs[:, :, j]
             pos = counts + torch.cumsum(oh, dim=1) - oh  # position if admitted
             admitted = (pos < cap).float() * oh
             counts = counts + oh.sum(dim=1, keepdim=True)
@@ -204,7 +203,7 @@ def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tens
     h = silu(torch.einsum("gecd,edf->gecf", ein, m.w1.to(cd)))
     h = h * torch.einsum("gecd,edf->gecf", ein, m.w3.to(cd))
     eout = torch.einsum("gecf,efd->gecd", h, m.w2.to(cd))
-    with obs.train_span(rec, "moe.combine"):
+    with runtime.train_span(rec, "moe.combine"):
         out = torch.einsum("gsec,gecd->gsd", combine, eout)
         out = out.reshape(G * gs, d)[:T].reshape(B, S, d)
 
@@ -216,6 +215,6 @@ def moe(m: MoE, x: torch.Tensor, dp_groups=()) -> tuple[torch.Tensor, torch.Tens
             frac_probs = _mean_over(frac_probs, dp_groups, n_dp)
         aux = e * torch.sum(frac_tokens * frac_probs)
     if cfg.moe_shared_d_ff:
-        with obs.train_span(rec, "moe.shared"):
+        with runtime.train_span(rec, "moe.shared"):
             out = out + mlp(m.shared, x)
     return out, aux

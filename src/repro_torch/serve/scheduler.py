@@ -15,7 +15,7 @@ One process, one stream, eager PyTorch: admission is host-side control
 flow, a decode tick is one ``lm_decode`` over all lanes (the decode
 attention kernel runs once per attention layer per tick), and a prefill is
 one ``lm_prefill`` per admitted request (the SSD kernel runs once per Mamba
-layer).  Spans and counters go to the port's ``TraceRecorder``.
+layer).  Spans and counters go to ``recorder``, an ``obs.TraceRecorder``.
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.core.cfa.obs import TraceRecorder, now
 from repro_torch.models.lm import LM, init_caches, lm_decode, lm_prefill
+from repro_torch.runtime import now
 
 __all__ = ["Request", "ContinuousBatcher"]
 
@@ -53,7 +53,7 @@ def _splice(dst: list[dict], lane: int, src: list[dict]) -> None:
 
 class ContinuousBatcher:
     def __init__(self, model: LM, *, lanes: int, max_seq: int, eos: int | None = None,
-                 recorder: TraceRecorder | None = None):
+                 recorder=None):
         self.model = model
         self.cfg = model.cfg
         self.lanes = lanes

@@ -42,14 +42,14 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import runtime
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.core.cfa import obs
-from repro_torch.core.cfa.api import resolve_device
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.distributed.sharding import use_mesh
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import init_lm, param_leaves, shard_lm
 from repro_torch.optim import make_optimizer
+from repro_torch.runtime import resolve_device
 from repro_torch.train.steps import TrainHParams, make_train_step
 
 __all__ = ["Trainer"]
@@ -59,7 +59,7 @@ class Trainer:
     def __init__(self, cfg: ArchConfig, *, batch: int, seq: int,
                  ckpt_dir: str | Path, hp: TrainHParams | None = None,
                  mesh=None, seed: int = 0, ckpt_every: int = 50, data=None, device="cuda",
-                 recorder: obs.TraceRecorder | None = None):
+                 recorder=None):
         self.cfg = cfg
         self.recorder = recorder
         self.hp = hp or TrainHParams()
@@ -129,22 +129,22 @@ class Trainer:
         log of this call (since the call began, for its first), read after
         the log's own reads, which wait for the device."""
         rec = self.recorder
-        with use_mesh(self.mesh), (obs.NO_SPAN if rec is None else rec.installed()):
+        with use_mesh(self.mesh), (runtime.NO_SPAN if rec is None else rec.installed()):
             end = self.step + n_steps
             t_log, step_log = time.perf_counter(), self.step
             while self.step < end:
                 if rec is not None:
                     rec.mark_clock()
-                with obs.train_span(rec, "train.step", step=self.step + 1):
-                    with obs.train_span(rec, "train.feed"):
+                with runtime.train_span(rec, "train.step", step=self.step + 1):
+                    with runtime.train_span(rec, "train.feed"):
                         batch = self.data.next(deadline_s=step_deadline_s)
-                    with obs.train_span(rec, "train.to_device"):
+                    with runtime.train_span(rec, "train.to_device"):
                         batch = {k: torch.as_tensor(v, device=self.device)
                                  for k, v in batch.items()}
                     _, self.opt_state, metrics = self.step_fn(self.model, self.opt_state, batch)
                     self.step += 1
                     if self.step % log_every == 0 or self.step == end:
-                        with obs.train_span(rec, "train.log"):
+                        with runtime.train_span(rec, "train.log"):
                             m = {k: float(v) for k, v in metrics.items()}
                         t = time.perf_counter()
                         m.update(step=self.step, dt=(t - t_log) / (self.step - step_log),
@@ -152,9 +152,9 @@ class Trainer:
                         self.metrics_log.append(m)
                         t_log, step_log = t, self.step
                     if self.step % self.ckpt_every == 0:
-                        with obs.train_span(rec, "train.checkpoint"):
+                        with runtime.train_span(rec, "train.checkpoint"):
                             self.ckpt.save(self.step, self.state())
-                    with obs.train_span(rec, "train.preempt"):
+                    with runtime.train_span(rec, "train.preempt"):
                         if self._preempted():
                             self.ckpt.save(self.step, self.state(), blocking=True)
                             break

@@ -20,7 +20,7 @@ keeps each gradient on its parameter's placements (the reference's
 ``constrain_tree``: ZeRO); without it the gradients are replicated (the
 all-reduce's result) and the update gives the same numbers.
 
-Under an installed ``obs.TraceRecorder`` (``Trainer(recorder=...)``) the
+Under an installed recorder (``Trainer(recorder=...)``) the
 step records ``train.forward`` (``loss_fn`` whole) with its child
 ``train.loss`` (the cross entropy from the logits), ``train.backward`` (the
 backward and the gradients' collection), ``train.clip`` and
@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from repro_torch.core.cfa import obs
+from repro_torch import runtime
 from repro_torch.distributed.compression import ef_compress, ef_init
 from repro_torch.distributed.sharding import P, batch_spec, constrain_tree, get_mesh, named
 from repro_torch.models.config import ArchConfig
@@ -67,12 +67,12 @@ def loss_fn(model: LM, batch: dict, cfg: ArchConfig, hp: TrainHParams, *, dp_gro
     reference's form: the padded vocab is an additive row of -1e30, the
     target is picked by a masked sum.  ``dp_groups``: see ``lm_forward``
     (the cross entropy is this rank's rows' mean)."""
-    rec = obs.active()
-    with obs.train_span(rec, "train.forward"):
+    rec = runtime.active()
+    with runtime.train_span(rec, "train.forward"):
         tokens = batch["tokens"]  # (B, S)
         logits, aux = lm_forward(model, tokens, cross_src=batch.get("context"),
                                  remat=hp.remat, remat_policy=hp.policy(), dp_groups=dp_groups)
-        with obs.train_span(rec, "train.loss"):
+        with runtime.train_span(rec, "train.loss"):
             tokens = torch.as_tensor(tokens, device=logits.device)
             lf = logits[:, :-1]
             targets = tokens[:, 1:]
@@ -133,7 +133,7 @@ def _grads(model: LM, batch: dict, cfg: ArchConfig, hp: TrainHParams, leaves, me
         groups = tuple(mesh.get_group(d) for d in dims)
     n = math.prod(g.size() for g in groups)
     loss, metrics = loss_fn(model, batch, cfg, hp, dp_groups=groups)
-    with obs.train_span(obs.active(), "train.backward"):
+    with runtime.train_span(runtime.active(), "train.backward"):
         (loss / n).backward()
         loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
         if groups:
@@ -177,10 +177,10 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams = TrainHParams()):
         if hp.compress_grads:
             # stateless form, as the reference's step: the residual is dropped
             grads, _ = ef_compress(grads, ef_init(grads))
-        rec = obs.active()
-        with obs.train_span(rec, "train.clip"):
+        rec = runtime.active()
+        with runtime.train_span(rec, "train.clip"):
             grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
-        with obs.train_span(rec, "train.optimizer"):
+        with runtime.train_span(rec, "train.optimizer"):
             lr = cosine_warmup(opt_state.step, peak_lr=hp.peak_lr, warmup=hp.warmup,
                                total=hp.total_steps)
             opt_state = opt_update(grads, opt_state, leaves, lr)

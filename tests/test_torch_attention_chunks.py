@@ -30,6 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import runtime  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.cfa import obs  # noqa: E402
 from repro_torch.models.layers import _chunked_attention  # noqa: E402
@@ -147,7 +148,7 @@ def test_counters_count_the_pairs_of_a_call(S, causal, want):
     assert rec.counters.as_dict() == {}
     with torch.no_grad(), rec.installed():
         _chunked_attention(q, k, v, causal=causal, chunk=8, scale=1.0)
-    assert obs.active() is None
+    assert runtime.active() is None
     c = rec.counters
     got = tuple(c[f"attention.chunk_pairs{s}"] for s in ("", "_run", "_masked"))
     assert got == want

@@ -2,9 +2,10 @@
 ``Trainer(recorder=...)``) and the repaired ``metrics_log`` ``dt``, on the
 CPU.
 
-* The process-wide recorder: none by default, ``installed()`` sets it for
-  every thread (a plain global: autograd's device thread inherits no
-  context), a span site without one enters the one shared ``NO_SPAN``.
+* The process-wide recorder (``repro_torch.runtime``): none by default,
+  ``installed()`` sets it for every thread (a plain global: autograd's
+  device thread inherits no context), a span site without one enters the
+  one shared ``NO_SPAN``.
 * Spans keep the native id of their thread and the span open on it when
   they began; ``unix_us`` puts them on the clock of ``torch.profiler``'s
   Chrome trace (``ts`` + ``baseTimeNanoseconds``), and ``to_chrome`` gives
@@ -24,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config
+from repro_torch import runtime
 from repro_torch.core.cfa import obs
 from repro_torch.models.lm import param_leaves
 from repro_torch.train.loop import Trainer
@@ -47,41 +49,41 @@ def _moe_trainer(tmp_path, recorder=None, **kw):
 
 
 def test_no_recorder_is_active_by_default():
-    assert obs.active() is None
+    assert runtime.active() is None
 
 
 def test_installed_recorder_is_seen_by_every_thread_and_removed_after():
     rec = obs.TraceRecorder()
     seen = []
     with rec.installed():
-        assert obs.active() is rec
-        worker = threading.Thread(target=lambda: seen.append(obs.active()))
+        assert runtime.active() is rec
+        worker = threading.Thread(target=lambda: seen.append(runtime.active()))
         worker.start()
         worker.join(timeout=30)
         assert not worker.is_alive()
         inner = obs.TraceRecorder()
         with inner.installed():
-            assert obs.active() is inner
-        assert obs.active() is rec
+            assert runtime.active() is inner
+        assert runtime.active() is rec
     assert seen == [rec]
-    assert obs.active() is None
+    assert runtime.active() is None
 
 
 def test_a_span_site_without_a_recorder_enters_one_shared_no_op():
-    assert obs.train_span(None, "train.step", step=3) is obs.NO_SPAN
-    assert obs.train_span(None, "moe.dispatch") is obs.NO_SPAN
-    with obs.train_span(None, "train.forward"):
+    assert runtime.train_span(None, "train.step", step=3) is runtime.NO_SPAN
+    assert runtime.train_span(None, "moe.dispatch") is runtime.NO_SPAN
+    with runtime.train_span(None, "train.forward"):
         pass
 
 
 def test_spans_keep_their_thread_and_parent():
     rec = obs.TraceRecorder()
-    with obs.train_span(rec, "train.step", step=1):
-        with obs.train_span(rec, "train.forward"):
+    with runtime.train_span(rec, "train.step", step=1):
+        with runtime.train_span(rec, "train.forward"):
             done = []
 
             def recompute():
-                with obs.train_span(rec, "moe.dispatch"):
+                with runtime.train_span(rec, "moe.dispatch"):
                     done.append(threading.get_native_id())
 
             worker = threading.Thread(target=recompute)
@@ -118,7 +120,7 @@ def test_a_span_contains_the_profiler_marker_on_the_converted_clock(tmp_path):
 
     rec = obs.TraceRecorder()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with obs.train_span(rec, "train.step", step=1):
+        with runtime.train_span(rec, "train.step", step=1):
             with record_function("marker"):
                 torch.ones(64).add_(1)
     path = tmp_path / "trace.json"
@@ -136,8 +138,8 @@ def test_a_span_contains_the_profiler_marker_on_the_converted_clock(tmp_path):
 
 def test_to_chrome_keeps_its_schema_and_gives_its_time_zero_on_the_unix_clock():
     rec = obs.TraceRecorder(label="train")
-    with obs.train_span(rec, "train.step", step=1):
-        with obs.train_span(rec, "train.feed"):
+    with runtime.train_span(rec, "train.step", step=1):
+        with runtime.train_span(rec, "train.feed"):
             pass
     obj = rec.to_chrome()
     assert obs.validate_chrome_trace(obj) == []
@@ -155,7 +157,7 @@ def test_trainer_records_each_phase_once_a_step_nested_in_its_parent(tmp_path):
         tr.run(2, log_every=1)
     finally:
         tr.data.close()
-    assert obs.active() is None
+    assert runtime.active() is None
     spans = rec.find(cat="train")
     assert spans == rec.spans
     by_id = {s.sid: s for s in spans}
